@@ -1,0 +1,174 @@
+"""Command-line interface: decode / probe.
+
+Usage:
+  python -m h264decode_tpu_torch decode in.h264 out.y4m [--backend gpu|numpy]
+      [--device cuda|cpu] [--no-deblock] [--metrics]
+  python -m h264decode_tpu_torch probe in.h264 [--access-points]
+
+The gpu backend runs on the CUDA device unless --device cpu asks for the
+CPU (the plain torch versions of the kernels). `serve`, `sharded` and `gop`
+are not ported yet (ROADMAP.md, Queue A).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+_NOT_PORTED = {
+    "serve": "ROADMAP.md, Queue A item 4",
+    "sharded": "ROADMAP.md, Queue A item 3",
+    "gop": "ROADMAP.md, Queue A item 3",
+}
+
+
+def _make_decoder(backend: str, apply_deblock: bool, device: str = "cuda",
+                  metrics=None):
+    if backend in _NOT_PORTED:
+        raise NotImplementedError(
+            f"backend {backend!r} is not ported yet ({_NOT_PORTED[backend]})"
+        )
+    if backend == "gpu":
+        from ..pipeline.gpu_pipeline import GpuDecoder
+
+        return GpuDecoder(apply_deblock=apply_deblock, device=device, metrics=metrics)
+    from ..pipeline.decoder import Decoder
+
+    return Decoder(apply_deblock=apply_deblock, metrics=metrics)
+
+
+def cmd_decode(args) -> int:
+    from ..io.writers import write_npz, write_y4m
+    from ..utils.metrics import DecodeMetrics
+
+    metrics = DecodeMetrics()
+    with open(args.input, "rb") as f:
+        data = f.read()
+    dec = _make_decoder(args.backend, not args.no_deblock, args.device, metrics)
+    try:
+        t0 = time.time()
+        if args.seek:
+            from ..pipeline.seek import decode_from, scan_access_points
+
+            pts = scan_access_points(data)
+            if not pts:
+                print("no access points found", file=sys.stderr)
+                return 1
+            pt = next((p for p in pts if p.picture_index >= args.seek), pts[-1])
+            frames = list(decode_from(data, pt, decoder=dec))
+        else:
+            with metrics.timer("decode"):
+                frames = dec.decode_stream(data)
+        dt = time.time() - t0
+    finally:
+        close = getattr(dec, "close", None)
+        if close is not None:
+            close()
+    if args.output.endswith(".npz"):
+        write_npz(args.output, frames)
+    else:
+        write_y4m(args.output, frames)
+    print(
+        f"decoded {len(frames)} frames in {dt:.2f}s "
+        f"({len(frames) / dt:.2f} fps) -> {args.output}"
+    )
+    if args.metrics:
+        print(metrics.dump())
+    return 0
+
+
+def cmd_probe(args) -> int:
+    from ..bitstream.annexb import iter_nalus
+    from ..syntax import nal as nal_mod
+    from ..syntax.nal import parse_nal_unit
+    from ..syntax.pps import parse_pps
+    from ..syntax.slice_header import parse_slice_header
+    from ..syntax.sps import parse_sps
+
+    data = open(args.input, "rb").read()
+    if getattr(args, "access_points", False):
+        from ..pipeline.seek import scan_access_points
+
+        for pt in scan_access_points(data):
+            extra = (
+                f" recovery_frame_cnt {pt.recovery_frame_cnt}"
+                f" exact {pt.exact_match}" if pt.kind == "recovery" else ""
+            )
+            print(
+                f"{pt.kind:8s} byte {pt.offset:<10d} picture "
+                f"{pt.picture_index}{extra}"
+            )
+        return 0
+    sps_map, pps_map = {}, {}
+    for raw in iter_nalus(data):
+        nal = parse_nal_unit(raw)
+        if nal.type == nal_mod.NAL_SPS:
+            s = parse_sps(nal.rbsp)
+            sps_map[s.seq_parameter_set_id] = s
+            print(
+                f"SPS {s.seq_parameter_set_id}: profile {s.profile_idc} "
+                f"level {s.level_idc} {s.width}x{s.height} "
+                f"chroma {s.chroma_format_idc} refs {s.max_num_ref_frames}"
+            )
+        elif nal.type == nal_mod.NAL_PPS:
+            p = parse_pps(nal.rbsp, sps_map)
+            pps_map[p.pic_parameter_set_id] = p
+            print(
+                f"PPS {p.pic_parameter_set_id}: "
+                f"{'CABAC' if p.entropy_coding_mode_flag else 'CAVLC'} "
+                f"init_qp {p.pic_init_qp} t8x8 {p.transform_8x8_mode_flag}"
+            )
+        elif nal.is_vcl:
+            h, s, p, _ = parse_slice_header(nal.rbsp, nal, sps_map, pps_map)
+            print(
+                f"slice {h.type_name}{' IDR' if h.idr_pic_flag else ''} "
+                f"frame_num {h.frame_num} qp {h.slice_qp(p)} "
+                f"first_mb {h.first_mb_in_slice}"
+            )
+        else:
+            print(f"NAL {nal.type}: {nal.name} ({len(raw)} bytes)")
+    return 0
+
+
+
+def cmd_not_ported(args) -> int:
+    raise NotImplementedError(
+        f"{args.cmd!r} is not ported yet ({_NOT_PORTED[args.cmd]})"
+    )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="h264decode_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    d = sub.add_parser("decode", help="decode an Annex-B file to y4m/npz")
+    d.add_argument("input")
+    d.add_argument("output")
+    d.add_argument(
+        "--backend", choices=["gpu", "numpy", "sharded", "gop"], default="gpu",
+        help="gpu: the GPU frame program; numpy: the host oracle",
+    )
+    d.add_argument("--device", default="cuda",
+                   help="torch device of the gpu backend (cuda, cuda:N or cpu)")
+    d.add_argument(
+        "--seek", type=int, default=0, metavar="N",
+        help="resume decoding at the first access point at/after picture N",
+    )
+    d.add_argument("--no-deblock", action="store_true")
+    d.add_argument("--metrics", action="store_true")
+    d.set_defaults(fn=cmd_decode)
+    p = sub.add_parser("probe", help="print stream structure")
+    p.add_argument("input")
+    p.add_argument(
+        "--access-points", action="store_true",
+        help="list random-access points (IDR / recovery-point SEI)",
+    )
+    p.set_defaults(fn=cmd_probe)
+    s = sub.add_parser("serve", help="TCP Annex-B ingest server (not ported yet)")
+    s.set_defaults(fn=cmd_not_ported)
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,634 @@
+"""Top-level decode orchestration: Annex-B stream -> YUV frames.
+
+Dataflow (SURVEY.md section 7.1 two-phase design):
+  bytes -> NAL demux -> SPS/PPS state -> per-picture entropy decode
+  (CAVLC/CABAC, host) -> FrameTensors -> pixel reconstruction
+  (numpy oracle here; kernels/ TPU path via pipeline/tpu_pipeline.py)
+  -> deblocking -> DPB -> POC-ordered output.
+
+Capability superset of the reference's handleConnection dispatch
+(/root/reference/h264/server.go:144-165).
+"""
+
+from __future__ import annotations
+
+
+import os
+
+import numpy as np
+
+from ..bitstream.annexb import iter_nalus, iter_nalus_chunks
+from ..entropy.cavlc_slice import CavlcSliceDecoder
+from ..entropy.direct import DirectContext
+from ..entropy.mv_pred import MotionContext
+from ..syntax import nal as nal_mod
+from ..syntax.fmo import map_unit_to_slice_group_map, mb_to_slice_group_map
+from ..syntax.nal import parse_nal_unit
+from ..syntax.sei import parse_sei
+from ..syntax.pps import PPS, parse_pps
+from ..syntax.slice_header import SliceHeader, parse_slice_header
+from ..syntax.sps import SPS, parse_sps
+from ..tensors.frame_tensors import FrameTensors
+from .deblock import deblock_frame
+from .dpb import DPB, Picture, POCContext
+from .intra_frame import IntraFrameReconstructor
+
+
+class DecodedFrame:
+    """One output frame. Planes materialize lazily: the TPU pipeline hands
+    over device arrays still being computed/downloaded, so the decode loop
+    never blocks on the (slow) device link — the download happens on first
+    plane access, overlapping later frames' entropy decode and device work."""
+
+    def __init__(self, y, cb, cr, poc=0, frame_num=0, is_idr=False,
+                 idr_group=0, sps=None):
+        self._raw = [y, cb, cr]
+        self._mat: list[np.ndarray | None] = [None, None, None]
+        self._sps = sps
+        self.poc = poc
+        self.frame_num = frame_num
+        self.is_idr = is_idr
+        self.idr_group = idr_group
+        #: recovery-point SEI (Annex D.2.7) attached to this access unit;
+        #: decoding may resume here (see pipeline/seek.py)
+        self.recovery_point = None
+
+    def _plane(self, i: int) -> np.ndarray:
+        if self._mat[i] is None:
+            p = self._raw[i]
+            if not isinstance(p, np.ndarray):
+                p = np.asarray(p)  # device -> host, exactly once
+            if self._sps is not None:
+                p = crop(p, self._sps, i > 0)
+            self._mat[i] = p
+            self._raw[i] = None
+        return self._mat[i]
+
+    @property
+    def y(self) -> np.ndarray:
+        return self._plane(0)
+
+    @property
+    def cb(self) -> np.ndarray:
+        return self._plane(1)
+
+    @property
+    def cr(self) -> np.ndarray:
+        return self._plane(2)
+
+    def planes(self):
+        return self.y, self.cb, self.cr
+
+    def sync(self):
+        """Block until this frame's pixels have been COMPUTED, without
+        forcing the device->host download. For host-decoded frames this is
+        a no-op; for the TPU pipeline it waits for the frame's packed output
+        buffer to exist on device (the honest "decode complete" point —
+        fetching it is transport, not decoding)."""
+        for p in self._raw:
+            if p is None:
+                continue
+            block = getattr(p, "block_until_ready", None)
+            if block is not None:
+                block()
+        return self
+
+
+def crop(plane: np.ndarray, sps: SPS, chroma: bool) -> np.ndarray:
+    """Apply the SPS frame cropping rectangle (spec 7.4.2.1.1)."""
+    if not sps.frame_cropping_flag:
+        h = sps.height // ((sps.sub_height_c or 1) if chroma else 1)
+        w = sps.width // ((sps.sub_width_c or 1) if chroma else 1)
+        return plane[:h, :w]
+    # mono streams carry no SubWidthC/SubHeightC (spec: undefined); our
+    # chroma planes use the conventional 4:2:0 presentation there
+    sub_x = (sps.sub_width_c or 2) if chroma else 1
+    sub_y = (sps.sub_height_c or 2) if chroma else 1
+    unit_x = sps.sub_width_c if sps.chroma_array_type in (1, 2) else 1
+    unit_y = (sps.sub_height_c if sps.chroma_array_type in (1, 2) else 1) * (
+        2 - int(sps.frame_mbs_only_flag)
+    )
+    left = sps.frame_crop_left_offset * unit_x // sub_x
+    right = sps.frame_crop_right_offset * unit_x // sub_x
+    top = sps.frame_crop_top_offset * unit_y // sub_y
+    bottom = sps.frame_crop_bottom_offset * unit_y // sub_y
+    h, w = plane.shape
+    return plane[top : h - bottom, left : w - right]
+
+
+def _new_picture(prev: SliceHeader, hdr: SliceHeader) -> bool:
+    """First-VCL-NAL-of-a-new-picture detection, spec 7.4.1.2.4.
+
+    The reference has no picture assembly at all (it parses slice by slice,
+    h264/server.go:157-164); a first_mb_in_slice==0 heuristic would split
+    FMO pictures, whose later slice groups can start at MB address 0."""
+    if hdr.frame_num != prev.frame_num:
+        return True
+    if hdr.pic_parameter_set_id != prev.pic_parameter_set_id:
+        return True
+    if hdr.field_pic_flag != prev.field_pic_flag:
+        return True
+    if hdr.field_pic_flag and hdr.bottom_field_flag != prev.bottom_field_flag:
+        return True
+    if (hdr.nal_ref_idc == 0) != (prev.nal_ref_idc == 0):
+        return True
+    if hdr.idr_pic_flag != prev.idr_pic_flag:
+        return True
+    if hdr.idr_pic_flag and hdr.idr_pic_id != prev.idr_pic_id:
+        return True
+    if hdr.pic_order_cnt_lsb != prev.pic_order_cnt_lsb:
+        return True
+    if hdr.delta_pic_order_cnt_bottom != prev.delta_pic_order_cnt_bottom:
+        return True
+    if hdr.delta_pic_order_cnt != prev.delta_pic_order_cnt:
+        return True
+    # same picture only if MB addresses advance (redundant slices aside)
+    return hdr.first_mb_in_slice == 0 and prev.first_mb_in_slice == 0
+
+
+class Decoder:
+    """Stateful stream decoder with DPB/POC picture management.
+
+    error_policy: "strict" raises on corrupt data; "skip" degrades
+    per-slice/per-picture and keeps decoding (SURVEY.md section 5 — the
+    reference is crash-only: panic/recover + os.Exit, h264/server.go:136).
+    """
+
+    def __init__(self, apply_deblock: bool = True, error_policy: str = "strict",
+                 metrics=None):
+        self.sps_map: dict[int, SPS] = {}
+        self.pps_map: dict[int, PPS] = {}
+        self.apply_deblock = apply_deblock
+        self.error_policy = error_policy
+        self.metrics = metrics
+        self.error_count = 0
+        self._cur: list[tuple[SliceHeader, SPS, PPS, object]] = []
+        self.poc_ctx: POCContext | None = None
+        self.dpb: DPB | None = None
+        self.uid_counter = 0
+        self.idr_group = -1
+        self._pending_recovery = None  # recovery-point SEI awaiting its AU
+        self._first_field = None  # PAFF: decoded field awaiting its pair
+        self.max_pending = 0  # high-water mark of the output reorder buffer
+
+    def decode_stream(self, data: bytes) -> list[DecodedFrame]:
+        return list(self.decode_iter(data))
+
+    def decode_iter(self, data):
+        """Incremental decode: yields frames in output order as the DPB bumps
+        them (spec C.4.5.3), holding at most max_num_reorder pending frames.
+
+        `data` is either a complete Annex-B byte string or an iterable of
+        byte chunks (e.g. a TCP socket reader); in the chunked form nothing
+        buffers the whole stream, so memory stays constant for arbitrarily
+        long inputs — unlike the reference, whose input buffer grows forever
+        (h264/bit_reader.go:27-39) and which never emits pixels at all."""
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            nalus = iter_nalus(bytes(data))
+        else:
+            nalus = iter_nalus_chunks(data)
+        pending: list[DecodedFrame] = []  # decoded, not yet output (C.4.5)
+        self.max_pending = 0
+
+        def bump(frame: DecodedFrame):
+            # an IDR starts a new POC sequence: all prior-group pictures are
+            # output first (C.4.5.3 with no_output_of_prior_pics handling
+            # simplified to "output", the conformant display behaviour)
+            if frame.is_idr:
+                pending.sort(key=lambda f: f.poc)
+                yield from pending
+                pending.clear()
+            pending.append(frame)
+            self.max_pending = max(self.max_pending, len(pending))
+            bound = frame._sps.max_num_reorder if frame._sps else 16
+            while len(pending) > bound:
+                i = min(range(len(pending)), key=lambda k: pending[k].poc)
+                yield pending.pop(i)
+
+        for raw in nalus:
+            nal = parse_nal_unit(raw)
+            if nal.type == nal_mod.NAL_SPS:
+                try:
+                    s = parse_sps(nal.rbsp)
+                except Exception:
+                    if self.error_policy == "strict":
+                        raise
+                    self.error_count += 1
+                    continue
+                self.sps_map[s.seq_parameter_set_id] = s
+            elif nal.type == nal_mod.NAL_PPS:
+                try:
+                    p = parse_pps(nal.rbsp, self.sps_map)
+                except Exception:
+                    if self.error_policy == "strict":
+                        raise
+                    self.error_count += 1
+                    continue
+                self.pps_map[p.pic_parameter_set_id] = p
+            elif nal.type == nal_mod.NAL_SEI:
+                try:
+                    sei = parse_sei(nal.rbsp)
+                except Exception:
+                    if self.error_policy == "strict":
+                        raise
+                    self.error_count += 1
+                    continue
+                rp = sei.recovery_point()
+                if rp is not None:
+                    self._pending_recovery = rp
+            elif nal.type in (
+                nal_mod.NAL_SLICE_PART_B, nal_mod.NAL_SLICE_PART_C
+            ):
+                # slice_data_partition_b/c_layer (7.3.2.9/.10): slice_id +
+                # [redundant_pic_cnt] + category-3/4 slice data. Attach the
+                # reader to the pending partition-A slice with this slice_id.
+                try:
+                    from ..bitstream.bitreader import BitReader
+
+                    r = BitReader(nal.rbsp)
+                    sid = r.ue()
+                    cat = 3 if nal.type == nal_mod.NAL_SLICE_PART_B else 4
+                    owner = None
+                    for h, s_, p_, _ in reversed(self._cur):
+                        if getattr(h, "dp_slice_id", None) == sid:
+                            owner = (h, p_)
+                            break
+                    if owner is None:
+                        raise ValueError(
+                            f"partition {'B' if cat == 3 else 'C'} without "
+                            f"a matching partition A (slice_id {sid})"
+                        )
+                    h, p_ = owner
+                    if p_.redundant_pic_cnt_present_flag:
+                        r.ue()  # redundant_pic_cnt
+                    h.dp_readers[cat] = r
+                except Exception:
+                    if self.error_policy == "strict":
+                        raise
+                    self.error_count += 1
+                    continue
+            elif nal.is_vcl:
+                try:
+                    hdr, sps, pps, r = parse_slice_header(
+                        nal.rbsp, nal, self.sps_map, self.pps_map
+                    )
+                    if nal.type == nal_mod.NAL_SLICE_PART_A:
+                        # slice_data_partition_a_layer (7.3.2.8)
+                        if pps.entropy_coding_mode_flag:
+                            raise NotImplementedError(
+                                "CABAC with data partitioning"
+                            )
+                        hdr.dp_slice_id = r.ue()
+                        hdr.dp_readers = {2: r}
+                        # slice_data starts after slice_id in partition A:
+                        # keep data_bit_offset true for offset-based
+                        # consumers (the native engine)
+                        hdr.data_bit_offset = r.pos
+                except Exception:
+                    if self.error_policy == "strict":
+                        raise
+                    self.error_count += 1
+                    continue
+                if self._cur and _new_picture(self._cur[-1][0], hdr):
+                    try:
+                        f = self._finish_picture()
+                    except Exception:
+                        if self.error_policy == "strict":
+                            raise
+                        self.error_count += 1
+                        self._cur = []
+                    else:
+                        if f is not None:  # None = first field of a pair
+                            yield from bump(f)
+                self._cur.append((hdr, sps, pps, r))
+        if self._cur:
+            try:
+                f = self._finish_picture()
+            except Exception:
+                if self.error_policy == "strict":
+                    raise
+                self.error_count += 1
+            else:
+                if f is not None:
+                    yield from bump(f)
+        # surface any deferred reconstruction error (pipelined decoders run
+        # pixel reconstruction on a worker thread; see _submit_reconstruct)
+        self._drain_recon()
+        pending.sort(key=lambda f: f.poc)
+        yield from pending
+
+    def _submit_reconstruct(self, ft, sps, pps, slices, ref_lists,
+                            weight_ctx, poc):
+        """Reconstruction dispatch hook. The base decoder reconstructs
+        synchronously; TpuDecoder overrides this to run reconstruction on a
+        worker thread so the (serial, host-bound) entropy decode of picture
+        N+1 overlaps the host prep + device dispatch of picture N — the
+        slice-wavefront pipelining of SURVEY.md section 7.3. Returns
+        (y, cb, cr): numpy arrays or lazy plane objects."""
+        return self._reconstruct(ft, sps, pps, slices, ref_lists,
+                                 weight_ctx, poc)
+
+    def _drain_recon(self):
+        """Wait for any asynchronous reconstruction work (hook)."""
+
+    def _reconstruct(self, ft, sps, pps, slices, ref_lists, weight_ctx, poc):
+        """Pixel reconstruction backend (numpy oracle here; TpuDecoder in
+        pipeline/tpu_pipeline.py overrides with the jitted XLA pipeline)."""
+        hdr0 = slices[0][0]
+        parity = int(hdr0.bottom_field_flag) if hdr0.field_pic_flag else -1
+        sp_ctx = [
+            ("sp", h.sp_for_switch_flag, h.slice_qs(p)) if h.is_sp
+            else ("si", True, h.slice_qs(p)) if h.is_si
+            else None
+            for h, s, p, _ in slices
+        ]
+        recon = IntraFrameReconstructor(
+            ft, sps, pps, ref_lists=ref_lists, weight_ctx=weight_ctx,
+            cur_poc=poc, cur_parity=parity, sp_ctx=sp_ctx,
+            cur_field_pocs=getattr(ft, "cur_field_pocs", (poc, poc)),
+        )
+        y, cb, cr = recon.run()
+        if sps.chroma_array_type == 0:
+            # monochrome (chroma_format_idc 0): no chroma is coded; present
+            # the conventional mid-gray fill (what libavcodec emits when a
+            # mono stream is viewed as 4:2:0) so refs/MC stay consistent
+            mid = 1 << (sps.bit_depth_chroma - 1)
+            cb = np.full_like(cb, mid)
+            cr = np.full_like(cr, mid)
+        if self.apply_deblock:
+            y, cb, cr = deblock_frame(ft, sps, pps, y, cb, cr)
+        return y, cb, cr
+
+    def _finish_picture(self) -> DecodedFrame | None:
+        slices = self._cur
+        self._cur = []
+        hdr0, sps, pps, _ = slices[0]
+        field = bool(hdr0.field_pic_flag)  # PAFF field picture
+        if self.poc_ctx is None or self.poc_ctx.sps is not sps:
+            self.poc_ctx = POCContext(sps)
+        if self.dpb is None or self.dpb.sps is not sps:
+            self.dpb = DPB(sps)
+        if hdr0.idr_pic_flag and not (
+            field and self._first_field is not None
+        ):
+            self.idr_group += 1
+        poc = self.poc_ctx.compute(hdr0)
+        if not self.dpb.pictures and any(
+            h.is_p or h.is_b or h.is_sp for h, *_ in slices
+        ):
+            # non-IDR entry (seek to a recovery point, broken link): seed a
+            # gray placeholder reference so prediction machinery proceeds
+            self.dpb.seed_missing_ref(hdr0, poc, self.uid_counter)
+            self.uid_counter += 1
+
+        mb_h_pic = (
+            sps.pic_height_in_map_units if field else sps.frame_height_in_mbs
+        )
+        cf = sps.chroma_array_type
+        ft = FrameTensors(
+            mb_w=sps.pic_width_in_mbs,
+            mb_h=mb_h_pic,
+            chroma_format=cf if cf in (2, 3) else 1,
+        )
+        ft.mbaff = bool(hdr0.mbaff_frame_flag)
+        ft.field_pic = field
+        ft.cur_field_pocs = self.poc_ctx.last_field_pocs
+        intra_mode_grid = np.full((ft.mb_h * 4, ft.mb_w * 4), -1, np.int8)
+        motion = MotionContext(ft.mb_w, ft.mb_h, ft.slice_id)
+        ref_lists: list[tuple[list[Picture], list[Picture]]] = []
+        weight_ctx: list[tuple[bool, object]] = []
+        from ..entropy import native as native_mod
+
+        use_native = native_mod.native_available() and all(
+            native_mod.supported(s, p, h) for h, s, p, _ in slices
+        )
+        if not hasattr(self, "_native_pool"):
+            self._native_pool = {}
+        native_state = (
+            native_mod.NativeFrameState(
+                ft, motion, intra_mode_grid, pool=self._native_pool,
+                bit_depth=max(sps.bit_depth_luma, sps.bit_depth_chroma),
+            )
+            if use_native
+            else None
+        )
+        import contextlib
+
+        _t_entropy = (
+            self.metrics.timer("entropy") if self.metrics is not None
+            else contextlib.nullcontext()
+        )
+        _t_entropy.__enter__()
+        native_calls = []  # deferred engine calls, dispatched concurrently
+        for slice_id, (hdr, s_sps, s_pps, r) in enumerate(slices):
+            map_units = map_unit_to_slice_group_map(
+                s_sps, s_pps, hdr.slice_group_change_cycle
+            )
+            mb_map = mb_to_slice_group_map(
+                s_sps, map_units, hdr.field_pic_flag, hdr.mbaff_frame_flag
+            )
+            l0: list[Picture] = []
+            l1: list[Picture] = []
+            direct_ctx = None
+            if hdr.is_p or hdr.is_sp:
+                l0 = self.dpb.ref_list_p(hdr)
+            elif hdr.is_b:
+                l0, l1 = self.dpb.ref_lists_b(hdr, poc)
+                col = l1[0]
+                direct_ctx = DirectContext(
+                    col_mv=col.col_mv,
+                    col_ref_idx=col.col_ref_idx,
+                    col_ref_uid=col.col_ref_uid,
+                    col_ref_parity=col.col_ref_parity,
+                    l0_top_pocs=[p.top_poc for p in l0],
+                    l0_bottom_pocs=[p.bottom_poc for p in l0],
+                    col_is_short_term=not col.long_term,
+                    col_poc=col.poc,
+                    cur_ft=ft,
+                    col_mb_field=col.col_mb_field,
+                    col_top_poc=col.top_poc,
+                    col_bottom_poc=col.bottom_poc,
+                    l0_uids=[p.uid for p in l0],
+                    l0_pocs=[p.poc for p in l0],
+                    l0_long_term=[p.long_term for p in l0],
+                    l1_pocs=[p.poc for p in l1],
+                    cur_poc=poc,
+                    spatial=hdr.direct_spatial_mv_pred_flag,
+                    direct_8x8_inference=s_sps.direct_8x8_inference_flag,
+                )
+            ref_lists.append((l0, l1))
+            if hdr.is_b:
+                wmode = {0: "none", 1: "explicit", 2: "implicit"}[
+                    s_pps.weighted_bipred_idc
+                ]
+            elif (hdr.is_p or hdr.is_sp) and s_pps.weighted_pred_flag:
+                wmode = "explicit"
+            else:
+                wmode = "none"
+            weight_ctx.append((wmode, hdr.pred_weight_table))
+            if use_native:
+                from functools import partial as _partial
+
+                native_calls.append(_partial(
+                    native_mod.decode_slice_native,
+                    native_state,
+                    hdr,
+                    s_sps,
+                    s_pps,
+                    r.data,
+                    slice_id,
+                    [p.uid for p in l0],
+                    [p.uid for p in l1],
+                    direct_ctx,
+                    mb_map=mb_map,
+                    # multi-slice frames decode their slices CONCURRENTLY
+                    # (the engine releases the GIL; slices partition the
+                    # picture and cross-slice neighbors are masked), each
+                    # with a private decode-order buffer merged in order
+                    fb=(native_state.parallel_fb()
+                        if len(slices) > 1 else None),
+                ))
+                continue
+            from ..entropy.cabac_slice import CabacSliceDecoder
+
+            cls = (
+                CabacSliceDecoder
+                if s_pps.entropy_coding_mode_flag
+                else CavlcSliceDecoder
+            )
+            dec = cls(
+                ft,
+                hdr,
+                s_sps,
+                s_pps,
+                r,
+                slice_id,
+                mb_map,
+                intra_mode_grid,
+                motion=motion,
+                ref_uids_l0=[p.uid for p in l0],
+                ref_uids_l1=[p.uid for p in l1],
+                direct_ctx=direct_ctx,
+            )
+            dec.decode()
+        if len(native_calls) > 1:
+            ex = getattr(self, "_slice_exec", None)
+            if ex is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                ex = ThreadPoolExecutor(
+                    max_workers=min(8, os.cpu_count() or 4),
+                    thread_name_prefix="h264slice",
+                )
+                self._slice_exec = ex
+            # map() drains the iterator and re-raises the first failure
+            list(ex.map(lambda call: call(), native_calls))
+        elif native_calls:
+            native_calls[0]()
+        if native_state is not None:
+            native_state.finish()
+        _t_entropy.__exit__(None, None, None)
+        if self.metrics is not None:
+            self.metrics.count("frames")
+            self.metrics.count("mbs", ft.n_mbs)
+        y, cb, cr = self._submit_reconstruct(
+            ft, sps, pps, slices, ref_lists, weight_ctx, poc
+        )
+        top_poc, bottom_poc = self.poc_ctx.last_field_pocs
+        pic = Picture(
+            y=y,
+            cb=cb,
+            cr=cr,
+            frame_num=hdr0.frame_num,
+            poc=poc,
+            uid=self.uid_counter,
+            parity=int(hdr0.bottom_field_flag) if field else -1,
+            top_poc=top_poc,
+            bottom_poc=bottom_poc,
+        )
+        if ft.mb_field.any():
+            pic.col_mb_field = ft.mb_field.copy()
+        # colocated motion for future B direct derivation (8.4.1.2.1):
+        # prefer L0; fall back to L1; intra/none -> -1
+        use_l0 = motion.ref[0] >= 0
+        use_l1 = (~use_l0) & (motion.ref[1] >= 0)
+        pic.col_ref_idx = np.where(
+            use_l0, motion.ref[0], np.where(use_l1, motion.ref[1], -1)
+        ).astype(np.int8)
+        pic.col_mv = np.where(
+            use_l0[..., None], motion.mv[0], np.where(use_l1[..., None], motion.mv[1], 0)
+        ).astype(np.int32)
+        # per-part colocated picture uid (prefer L0), vectorized: parts are
+        # 2x2 8x8 blocks in raster order within each MB
+        rp = ft.ref_pic  # [n, 2, 4]
+        sel = np.where(rp[:, 0, :] >= 0, rp[:, 0, :], rp[:, 1, :])  # [n, 4]
+        part_grid = (
+            sel.reshape(ft.mb_h, ft.mb_w, 2, 2)
+            .transpose(0, 2, 1, 3)
+            .reshape(ft.mb_h * 2, ft.mb_w * 2)
+        )
+        pic.col_ref_uid = (
+            part_grid.repeat(2, axis=0).repeat(2, axis=1).astype(np.int32)
+        )
+        rpar = ft.ref_parity  # [n, 2, 4]
+        sel_par = np.where(rp[:, 0, :] >= 0, rpar[:, 0, :], rpar[:, 1, :])
+        pic.col_ref_parity = (
+            sel_par.reshape(ft.mb_h, ft.mb_w, 2, 2)
+            .transpose(0, 2, 1, 3)
+            .reshape(ft.mb_h * 2, ft.mb_w * 2)
+            .repeat(2, axis=0)
+            .repeat(2, axis=1)
+            .astype(np.int8)
+        )
+        self.uid_counter += 1
+        if hdr0.nal_ref_idc:
+            self.dpb.mark(pic, hdr0)
+        if field:
+            # PAFF: hold the first field; weave the complementary pair into
+            # one output frame (row-interleaved) when the second arrives
+            par = int(hdr0.bottom_field_flag)
+            cur = (
+                np.asarray(y), np.asarray(cb), np.asarray(cr),
+                par, poc, hdr0.idr_pic_flag,
+            )
+            if self._first_field is None or self._first_field[3] == par:
+                self._first_field = cur  # first (or orphaned) field
+                return None
+            fy, fcb, fcr, fpar, fpoc, fidr = self._first_field
+            self._first_field = None
+
+            def weave(a, b, pa, pb):
+                out = np.empty((a.shape[0] * 2, a.shape[1]), a.dtype)
+                out[pa::2] = a
+                out[pb::2] = b
+                return out
+
+            df = DecodedFrame(
+                y=weave(fy, cur[0], fpar, par),
+                cb=weave(fcb, cur[1], fpar, par),
+                cr=weave(fcr, cur[2], fpar, par),
+                poc=min(fpoc, poc),
+                frame_num=hdr0.frame_num,
+                is_idr=fidr or hdr0.idr_pic_flag,
+                idr_group=self.idr_group,
+                sps=sps,
+            )
+        else:
+            df = DecodedFrame(
+                y=y,
+                cb=cb,
+                cr=cr,
+                poc=poc,
+                frame_num=hdr0.frame_num,
+                is_idr=hdr0.idr_pic_flag,
+                idr_group=self.idr_group,
+                sps=sps,
+            )
+        if self._pending_recovery is not None:
+            df.recovery_point = self._pending_recovery
+            self._pending_recovery = None
+        return df
+
+
+def decode_annexb(data: bytes, apply_deblock: bool = True) -> list[DecodedFrame]:
+    return Decoder(apply_deblock=apply_deblock).decode_stream(data)

@@ -13,16 +13,20 @@ raises on failure, and the script then exits non-zero):
    geometry (68 x 120 MBs), on seeded inputs that cover every MB kind, all
    9 Intra4x4/8x8 modes, all 4 Intra16x16 and chroma modes, random
    availability combinations, bS 0..4 and QP 0 and 51. Bit-exact
-   (tolerance 0: integer outputs). Times from CUDA events, median of
-   several runs.
+   (tolerance 0: integer outputs). Kernel times: CUDA events around the
+   replay of a CUDA graph that holds one call's launches, median of 5
+   (the eager call's event time, which includes the host's enqueue gaps,
+   is printed beside it). Plain versions: events around the call.
 3. The main path: the committed 1080p Main CABAC stream through GpuDecoder
    (launch counters set to 0 just before, read just after; every kernel
    must have launched and the native entropy engine must have decoded),
    and through `python -m h264decode_tpu_torch decode`. Every frame's
    per-plane MD5 must equal libavcodec's committed MD5s. Prints frames/s
-   (timing fence: torch.cuda.synchronize()) and the per-stage timers. Then
-   the same for the committed CIF High stream (Intra8x8, weighted
-   prediction, 4 slices).
+   from the median of three decodes (timing fence:
+   torch.cuda.synchronize()), the per-stage timers, and a torch.profiler
+   trace of one more decode (device busy time, idle share, kernels per
+   frame, top device kernels). Then the same for the committed CIF High
+   stream (Intra8x8, weighted prediction, 4 slices).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -65,8 +69,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, setup=None, runs: int = 5, warmup: int = 1) -> float:
-    """Median device time of fn() in ms from CUDA events; setup() (not
-    timed) runs before each call."""
+    """Median time of fn() in ms between CUDA events recorded around the
+    call (host enqueue gaps included); setup() (not timed) runs before each
+    call."""
     import torch
 
     times = []
@@ -81,6 +86,21 @@ def cuda_ms(fn, setup=None, runs: int = 5, warmup: int = 1) -> float:
         if i >= warmup:
             times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, reset, runs: int = 5) -> float:
+    """Median device time in ms of fn()'s kernels, captured once in a CUDA
+    graph and replayed: the launches of one call (254 diagonals at 1080p)
+    run back to back, so the host's enqueue speed does not enter. reset()
+    (not timed) restores fn's tensors in place before each replay."""
+    import torch
+
+    g = torch.cuda.CUDAGraph()
+    reset()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(g):  # fn launches on the capture stream
+        fn()
+    return cuda_ms(g.replay, reset, runs=runs)
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -168,22 +188,23 @@ def kernel_phase(dev) -> dict:
     plain = intra_wavefront(*args)
     params = intra_cuda.pack_params(t["kind"], t["modes4"], t["i16"], t["cm"], t["avl"],
                                     t["avt"], t["avtr"], t["avtl"])
-    work = {}
+    work = {k: t[k].clone() for k in ("y", "cb", "cr")}
 
     def reset_intra():
-        work["y"], work["cb"], work["cr"] = t["y"].clone(), t["cb"].clone(), t["cr"].clone()
+        for k in ("y", "cb", "cr"):
+            work[k].copy_(t[k])
 
-    reset_intra()
     intra_cuda.intra_luma(work["y"], t["ry"], params, MB_H, MB_W)
     intra_cuda.intra_chroma(work["cb"], work["cr"], t["rcb"], t["rcr"], params, MB_H, MB_W)
     torch.cuda.synchronize()
     err_l = int((work["y"] - plain[0]).abs().max())
     err_c = max(int((work["cb"] - plain[1]).abs().max()),
                 int((work["cr"] - plain[2]).abs().max()))
-    ms_l = cuda_ms(lambda: intra_cuda.intra_luma(work["y"], t["ry"], params, MB_H, MB_W),
-                   reset_intra)
-    ms_c = cuda_ms(lambda: intra_cuda.intra_chroma(work["cb"], work["cr"], t["rcb"],
-                                                   t["rcr"], params, MB_H, MB_W), reset_intra)
+    run_l = lambda: intra_cuda.intra_luma(work["y"], t["ry"], params, MB_H, MB_W)  # noqa: E731
+    run_c = lambda: intra_cuda.intra_chroma(work["cb"], work["cr"], t["rcb"],  # noqa: E731
+                                            t["rcr"], params, MB_H, MB_W)
+    ms_l, ms_c = graph_ms(run_l, reset_intra), graph_ms(run_c, reset_intra)
+    eager_l, eager_c = cuda_ms(run_l, reset_intra), cuda_ms(run_c, reset_intra)
     ms_plain = cuda_ms(lambda: intra_wavefront(*args), runs=2)
     n_intra = int((t["kind"] > 0).sum())
     # bytes this data needs: every MB's params row is read; an intra MB reads
@@ -204,22 +225,22 @@ def kernel_phase(dev) -> dict:
         bms, by = bound(nb, ops)
         res[name] = dict(name=name, route="cuda", source="h264decode_tpu_torch/csrc/intra.cu",
                          replaces=f"h264decode_tpu/kernels/{src}", max_abs_err=err,
-                         max_abs_diff=err, ms=ms, plain_ms=ms_plain, bound_ms=bms,
-                         bound_by=by, library_ms=None,
-                         inner_launches_per_call=MB_W + 2 * (MB_H - 1))
-    log(f"intra: max_abs_err luma {err_l} chroma {err_c}; kernel ms luma {ms_l:.4f} "
-        f"chroma {ms_c:.4f}; plain (both) {ms_plain:.2f} ms; "
+                         ms=ms, plain_ms=ms_plain, bound_ms=bms, bound_by=by,
+                         library_ms=None)
+    log(f"intra: max_abs_err luma {err_l} chroma {err_c}; kernel ms (graph replay) luma "
+        f"{ms_l} chroma {ms_c}; eager call (events around the enqueue) luma {eager_l} "
+        f"chroma {eager_c}; plain (both) {ms_plain} ms; "
         f"MBs I4 {n_i4} I8 {n_i8} I16 {n_i16} of {n}")
 
     # ---- deblock
     (y0, cb0, cr0), prep = deblock_inputs(dev)
     plain = deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W)
-    dw = {}
+    dw = dict(y=y0.clone(), cb=cb0.clone(), cr=cr0.clone())
 
     def reset_db():
-        dw["y"], dw["cb"], dw["cr"] = y0.clone(), cb0.clone(), cr0.clone()
+        for k, v in (("y", y0), ("cb", cb0), ("cr", cr0)):
+            dw[k].copy_(v)
 
-    reset_db()
     deblock_cuda.deblock_luma(dw["y"], prep, MB_H, MB_W)
     deblock_cuda.deblock_chroma(dw["cb"], dw["cr"], prep, MB_H, MB_W)
     torch.cuda.synchronize()
@@ -230,9 +251,11 @@ def kernel_phase(dev) -> dict:
     changed = int((plain[0] != y0).sum())
     if changed == 0:
         raise RuntimeError("deblock inputs: the plain filter changed no sample")
-    ms_l = cuda_ms(lambda: deblock_cuda.deblock_luma(dw["y"], prep, MB_H, MB_W), reset_db)
-    ms_c = cuda_ms(lambda: deblock_cuda.deblock_chroma(dw["cb"], dw["cr"], prep, MB_H, MB_W),
-                   reset_db)
+    run_l = lambda: deblock_cuda.deblock_luma(dw["y"], prep, MB_H, MB_W)  # noqa: E731
+    run_c = lambda: deblock_cuda.deblock_chroma(dw["cb"], dw["cr"], prep,  # noqa: E731
+                                                MB_H, MB_W)
+    ms_l, ms_c = graph_ms(run_l, reset_db), graph_ms(run_c, reset_db)
+    eager_l, eager_c = cuda_ms(run_l, reset_db), cuda_ms(run_c, reset_db)
     ms_plain = cuda_ms(lambda: deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W), runs=2)
     mb_any = ((prep["bs_v"] > 0) | (prep["bs_h"] > 0)).reshape(MB_H, 4, MB_W, 4).any(3).any(1)
     n_act = int(mb_any.sum())
@@ -251,11 +274,11 @@ def kernel_phase(dev) -> dict:
         res[name] = dict(name=name, route="cuda",
                          source="h264decode_tpu_torch/csrc/deblock.cu",
                          replaces=f"h264decode_tpu/kernels/{src}", max_abs_err=err,
-                         max_abs_diff=err, ms=ms, plain_ms=ms_plain, bound_ms=bms,
-                         bound_by=by, library_ms=None,
-                         inner_launches_per_call=MB_W + 2 * (MB_H - 1))
-    log(f"deblock: max_abs_err luma {err_l} chroma {err_c}; kernel ms luma {ms_l:.4f} "
-        f"chroma {ms_c:.4f}; plain (both) {ms_plain:.2f} ms; active MBs {n_act} of {n}; "
+                         ms=ms, plain_ms=ms_plain, bound_ms=bms, bound_by=by,
+                         library_ms=None)
+    log(f"deblock: max_abs_err luma {err_l} chroma {err_c}; kernel ms (graph replay) luma "
+        f"{ms_l} chroma {ms_c}; eager call (events around the enqueue) luma {eager_l} "
+        f"chroma {eager_c}; plain (both) {ms_plain} ms; active MBs {n_act} of {n}; "
         f"samples changed by the filter {changed}")
     bad = {k: v["max_abs_err"] for k, v in res.items() if v["max_abs_err"] != 0}
     if bad:
@@ -284,31 +307,84 @@ def y4m_md5s(path: str, W: int, H: int) -> list[list[str]]:
     return out
 
 
-def main_path(dev, name: str, want: dict, kernel_names) -> dict:
+def decode_timed(dev, bs: bytes, metrics=None):
+    """Decode bs through a fresh GpuDecoder; returns (frames, wall seconds),
+    fenced by torch.cuda.synchronize() after every frame's output copy."""
     import torch
 
-    from h264decode_tpu_torch.entropy import native
-    from h264decode_tpu_torch.kernels import _build
     from h264decode_tpu_torch.pipeline.gpu_pipeline import GpuDecoder
-    from h264decode_tpu_torch.utils.metrics import DecodeMetrics
 
-    with open(os.path.join(DATA, name), "rb") as f:
-        bs = f.read()
-    with GpuDecoder(device=dev) as warm:  # first-call costs (allocator, tables)
-        for fr in warm.decode_stream(bs):
-            fr.sync()
-    torch.cuda.synchronize()
-    metrics = DecodeMetrics()
-    _build.launches.clear()
-    native.calls.clear()
     with GpuDecoder(device=dev, metrics=metrics) as dec:
-        t0 = time.time()
+        t0 = time.perf_counter()
         frames = dec.decode_stream(bs)
         for fr in frames:
             fr.sync()
         torch.cuda.synchronize()
-        dt = time.time() - t0
+        return frames, time.perf_counter() - t0
+
+
+def busy_seconds(events) -> float:
+    """Length of the union of the device intervals (us -> s)."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e6
+
+
+def trace(dev, bs: bytes, name: str, wall_unprofiled: float) -> dict:
+    """One decode under torch.profiler (CPU + CUDA): device busy time (the
+    union of kernel and memcpy intervals), the idle share against the
+    unprofiled wall time of the same stream (profiling slows the host, so
+    the profiled wall would inflate it), device kernels per frame and the
+    largest device kernels by time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        frames, wall = decode_timed(dev, bs)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        raise RuntimeError(f"{name}: the profiler recorded no device activity")
+    by_name: dict[str, list] = {}
+    for e in dev_events:
+        rec = by_name.setdefault(e.name[:100], [0.0, 0])
+        rec[0] += e.time_range.end - e.time_range.start
+        rec[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    busy = busy_seconds(dev_events)
+    return {
+        "stream": name, "frames": len(frames), "device_busy_s": busy,
+        "wall_s_profiled": wall, "wall_s_unprofiled": wall_unprofiled,
+        "device_idle_share": 1.0 - busy / wall_unprofiled,
+        "device_idle_share_profiled": 1.0 - busy / wall,
+        "device_events_per_frame": len(dev_events) / len(frames),
+        "device_ms_by_name": {k: {"ms": v[0] / 1e3, "count": v[1]} for k, v in top},
+    }
+
+
+def main_path(dev, name: str, want: dict, kernel_names) -> dict:
+    from h264decode_tpu_torch.entropy import native
+    from h264decode_tpu_torch.kernels import _build
+    from h264decode_tpu_torch.utils.metrics import DecodeMetrics
+
+    with open(os.path.join(DATA, name), "rb") as f:
+        bs = f.read()
+    decode_timed(dev, bs)  # first-call costs (allocator, tables)
+    metrics = DecodeMetrics()
+    _build.launches.clear()
+    _build.diag_launches.clear()
+    native.calls.clear()
+    frames, dt = decode_timed(dev, bs, metrics)
     launches = {k: _build.launches[k] for k in kernel_names}
+    diag = {k: _build.diag_launches[k] for k in kernel_names}
     native_slices = native.calls["decode_slice"]
     got = [md5s(fr.planes()) for fr in frames]
     if got != want["frames"]:
@@ -320,11 +396,16 @@ def main_path(dev, name: str, want: dict, kernel_names) -> dict:
         raise RuntimeError(f"{name}: kernels never launched on the main path: {missing}")
     if native._lib is None or native_slices == 0:
         raise RuntimeError(f"{name}: the native entropy engine did not decode")
-    fps = len(frames) / dt
-    log(f"{name}: {len(frames)} frames bit-exact vs libavcodec MD5s; {dt:.4f} s -> "
-        f"{fps:.3f} frames/s (fence: torch.cuda.synchronize); launches {launches}; "
-        f"native entropy slices {native_slices}")
+    # two more unprofiled decodes; frames/s is taken from the median wall
+    walls = [dt] + [decode_timed(dev, bs)[1] for _ in range(2)]
+    wall = statistics.median(walls)
+    fps = len(frames) / wall
+    log(f"{name}: {len(frames)} frames bit-exact vs libavcodec MD5s; walls {walls} s, "
+        f"median -> {fps} frames/s (fence: torch.cuda.synchronize); wrapper calls "
+        f"{launches}; device kernels they launched {diag}; native entropy slices "
+        f"{native_slices}")
     log(f"{name}: stage timers {json.dumps(metrics.summary())}")
+    log(f"{name}: trace {json.dumps(trace(dev, bs, name, wall))}")
     # the CLI entry point, as a user would call it
     os.makedirs(OUT, exist_ok=True)
     y4m = os.path.join(OUT, name.replace(".h264", ".y4m"))
@@ -339,7 +420,7 @@ def main_path(dev, name: str, want: dict, kernel_names) -> dict:
         raise RuntimeError(f"CLI decode of {name}: frames differ from libavcodec")
     os.remove(y4m)
     log(f"{name}: CLI decode bit-exact ({res.stdout.splitlines()[0]})")
-    return dict(launches=launches, fps=fps, seconds=dt, frames=len(frames))
+    return dict(launches=launches, diag=diag, fps=fps, frames=len(frames))
 
 
 def main() -> int:
@@ -378,6 +459,7 @@ def main() -> int:
     main_path(dev, "smoke_cif_high.h264", want["smoke_cif_high.h264"], names)
     for k in names:
         kernels[k]["launches"] = mp["launches"][k]
+        kernels[k]["inner_launches_per_call"] = mp["diag"][k] / mp["launches"][k]
     log(f"setup+run {time.time() - t0:.1f} s")
     log(json.dumps({"kernels": list(kernels.values()),
                     "main_path": {"stream": "smoke_1080p_main_cabac.h264",

@@ -17,7 +17,8 @@
 //
 // Design: one C entry per kernel loops over the diagonals on the host side
 // and launches one block per MB of the diagonal on the caller's stream (one
-// ctypes call per frame). A luma block has 16 threads: thread r filters
+// ctypes call per frame), and reports through *n_launched how many kernels
+// it launched. A luma block has 16 threads: thread r filters
 // line r across the 4 vertical edges left to right, then (after one
 // __syncthreads()) thread c filters column c across the 4 horizontal edges
 // top to bottom, which is the spec's order. Chroma: 16 threads, 8 lines
@@ -176,8 +177,10 @@ inline int diag_hi(int d, int mb_h) { return d / 2 < mb_h - 1 ? d / 2 : mb_h - 1
 
 extern "C" int deblock_luma(void* y, const void* bs_v, const void* bs_h, const void* ia_v,
                             const void* ib_v, const void* ia_h, const void* ib_h,
-                            const void* tabs, int mb_h, int mb_w, void* stream) {
+                            const void* tabs, int mb_h, int mb_w, void* stream,
+                            int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *n_launched = 0;
   for (int d = 0; d < mb_w + 2 * (mb_h - 1); ++d) {  // 254 at 1080p
     int lo = diag_lo(d, mb_w), hi = diag_hi(d, mb_h);
     if (hi < lo) continue;
@@ -186,6 +189,7 @@ extern "C" int deblock_luma(void* y, const void* bs_v, const void* bs_h, const v
         static_cast<const int*>(bs_h), static_cast<const int*>(ia_v),
         static_cast<const int*>(ib_v), static_cast<const int*>(ia_h),
         static_cast<const int*>(ib_h), static_cast<const int*>(tabs), mb_h, mb_w, d, lo);
+    ++*n_launched;
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -195,8 +199,9 @@ extern "C" int deblock_luma(void* y, const void* bs_v, const void* bs_h, const v
 extern "C" int deblock_chroma(void* cb, void* cr, const void* bs_v, const void* bs_h,
                               const void* ca_v, const void* cb_v, const void* ca_h,
                               const void* cb_h, const void* tabs, int mb_h, int mb_w,
-                              void* stream) {
+                              void* stream, int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *n_launched = 0;
   for (int d = 0; d < mb_w + 2 * (mb_h - 1); ++d) {  // 254 at 1080p
     int lo = diag_lo(d, mb_w), hi = diag_hi(d, mb_h);
     if (hi < lo) continue;
@@ -206,6 +211,7 @@ extern "C" int deblock_chroma(void* cb, void* cr, const void* bs_v, const void* 
         static_cast<const int*>(ca_v), static_cast<const int*>(cb_v),
         static_cast<const int*>(ca_h), static_cast<const int*>(cb_h),
         static_cast<const int*>(tabs), mb_h, mb_w, d, lo);
+    ++*n_launched;
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

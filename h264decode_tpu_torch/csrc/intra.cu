@@ -17,7 +17,8 @@
 //
 // Design: one C entry per kernel loops over the diagonals on the host side
 // and launches one block per macroblock of the diagonal on the caller's
-// stream (one ctypes call per frame). Inside a block, threads cover the
+// stream (one ctypes call per frame), and reports through *n_launched how
+// many kernels it launched. Inside a block, threads cover the
 // MB's pixels; the MB and its neighbour strips live in shared memory, and
 // Intra4x4 / Intra8x8 walk their sub-blocks in z-order with __syncthreads()
 // between them. A block whose MB is not intra returns at once (its pixels
@@ -272,14 +273,16 @@ inline int diag_hi(int d, int mb_h) { return d / 2 < mb_h - 1 ? d / 2 : mb_h - 1
 }  // namespace
 
 extern "C" int intra_luma(void* y, const void* res, const void* params, int mb_h,
-                          int mb_w, void* stream) {
+                          int mb_w, void* stream, int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *n_launched = 0;
   for (int d = 0; d < mb_w + 2 * (mb_h - 1); ++d) {  // 254 at 1080p
     int lo = diag_lo(d, mb_w), hi = diag_hi(d, mb_h);
     if (hi < lo) continue;
     intra_luma_diag<<<hi - lo + 1, 256, 0, s>>>(
         static_cast<int*>(y), static_cast<const int*>(res),
         static_cast<const int*>(params), mb_h, mb_w, d, lo);
+    ++*n_launched;
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -287,14 +290,17 @@ extern "C" int intra_luma(void* y, const void* res, const void* params, int mb_h
 }
 
 extern "C" int intra_chroma(void* cb, void* cr, const void* rcb, const void* rcr,
-                            const void* params, int mb_h, int mb_w, void* stream) {
+                            const void* params, int mb_h, int mb_w, void* stream,
+                            int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *n_launched = 0;
   for (int d = 0; d < mb_w + 2 * (mb_h - 1); ++d) {  // 254 at 1080p
     int lo = diag_lo(d, mb_w), hi = diag_hi(d, mb_h);
     if (hi < lo) continue;
     intra_chroma_diag<<<hi - lo + 1, 128, 0, s>>>(
         static_cast<int*>(cb), static_cast<int*>(cr), static_cast<const int*>(rcb),
         static_cast<const int*>(rcr), static_cast<const int*>(params), mb_h, mb_w, d, lo);
+    ++*n_launched;
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

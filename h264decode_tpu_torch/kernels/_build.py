@@ -33,6 +33,9 @@ NVCC_FLAGS = [
 #: kernel launches by wrapper name: each wrapper adds one where it launches
 #: its kernel (one ctypes call = one C entry call per frame), and nowhere else
 launches: Counter = Counter()
+#: device kernels by wrapper name: each wrapper adds the number of <<<>>>
+#: launches its C entry reports having issued (one per non-empty diagonal)
+diag_launches: Counter = Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -102,10 +105,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a non-zero cudaError_t."""
+def launch(name: str, entry, *args) -> None:
+    """Call the C entry point of wrapper `name` as entry(*args, &n), where
+    it stores in n the number of device kernels it launched. Counts the call
+    in `launches` and n in `diag_launches`, then raises if the entry
+    returned a non-zero cudaError_t."""
+    n = ctypes.c_int(0)
+    launches[name] += 1
+    err = entry(*args, ctypes.addressof(n))
+    diag_launches[name] += n.value
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
 def check_tensor(t, shape, dtype, name: str) -> None:

@@ -29,9 +29,9 @@ def _load():
     if _lib is None:
         lib = _build.load("deblock")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.deblock_luma.argtypes = [vp] * 8 + [ci, ci, vp]
+        lib.deblock_luma.argtypes = [vp] * 8 + [ci, ci, vp, vp]
         lib.deblock_luma.restype = ci
-        lib.deblock_chroma.argtypes = [vp] * 9 + [ci, ci, vp]
+        lib.deblock_chroma.argtypes = [vp] * 9 + [ci, ci, vp, vp]
         lib.deblock_chroma.restype = ci
         _lib = lib
     return _lib
@@ -50,12 +50,9 @@ def deblock_luma(y: torch.Tensor, prep: dict, mb_h: int, mb_w: int) -> None:
     names = ("bs_v", "bs_h", "ia_v", "ib_v", "ia_h", "ib_h")
     for n in names:
         _build.check_tensor(prep[n], (4 * mb_h, 4 * mb_w), torch.int32, n)
-    lib = _load()
-    _build.launches["deblock_luma"] += 1
-    err = lib.deblock_luma(y.data_ptr(), *(prep[n].data_ptr() for n in names),
-                           _tables(y.device).data_ptr(), mb_h, mb_w,
-                           torch.cuda.current_stream(y.device).cuda_stream)
-    _build.check(err, "deblock_luma")
+    _build.launch("deblock_luma", _load().deblock_luma, y.data_ptr(),
+                  *(prep[n].data_ptr() for n in names), _tables(y.device).data_ptr(),
+                  mb_h, mb_w, torch.cuda.current_stream(y.device).cuda_stream)
 
 
 def deblock_chroma(cb: torch.Tensor, cr: torch.Tensor, prep: dict, mb_h: int,
@@ -68,13 +65,10 @@ def deblock_chroma(cb: torch.Tensor, cr: torch.Tensor, prep: dict, mb_h: int,
     names = ("ca_v", "cb_v", "ca_h", "cb_h")
     for n in names:
         _build.check_tensor(prep[n], (2, 4 * mb_h, 4 * mb_w), torch.int32, n)
-    lib = _load()
-    _build.launches["deblock_chroma"] += 1
-    err = lib.deblock_chroma(cb.data_ptr(), cr.data_ptr(), prep["bs_v"].data_ptr(),
-                             prep["bs_h"].data_ptr(), *(prep[n].data_ptr() for n in names),
-                             _tables(cb.device).data_ptr(), mb_h, mb_w,
-                             torch.cuda.current_stream(cb.device).cuda_stream)
-    _build.check(err, "deblock_chroma")
+    _build.launch("deblock_chroma", _load().deblock_chroma, cb.data_ptr(), cr.data_ptr(),
+                  prep["bs_v"].data_ptr(), prep["bs_h"].data_ptr(),
+                  *(prep[n].data_ptr() for n in names), _tables(cb.device).data_ptr(),
+                  mb_h, mb_w, torch.cuda.current_stream(cb.device).cuda_stream)
 
 
 def deblock_frame(y, cb, cr, prep: dict, mb_h: int, mb_w: int):

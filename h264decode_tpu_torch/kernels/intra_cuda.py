@@ -25,9 +25,9 @@ def _load():
     if _lib is None:
         lib = _build.load("intra")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.intra_luma.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.intra_luma.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         lib.intra_luma.restype = ci
-        lib.intra_chroma.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.intra_chroma.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp]
         lib.intra_chroma.restype = ci
         _lib = lib
     return _lib
@@ -54,11 +54,9 @@ def intra_luma(y: torch.Tensor, ry: torch.Tensor, params: torch.Tensor,
     _check(y, (H, W), "y")
     _check(ry, (H, W), "resid_y")
     _check(params, (mb_h * mb_w, NPARAM), "params")
-    lib = _load()
-    _build.launches["intra_luma"] += 1
-    err = lib.intra_luma(y.data_ptr(), ry.data_ptr(), params.data_ptr(), mb_h, mb_w,
-                         torch.cuda.current_stream(y.device).cuda_stream)
-    _build.check(err, "intra_luma")
+    _build.launch("intra_luma", _load().intra_luma, y.data_ptr(), ry.data_ptr(),
+                  params.data_ptr(), mb_h, mb_w,
+                  torch.cuda.current_stream(y.device).cuda_stream)
 
 
 def intra_chroma(cb: torch.Tensor, cr: torch.Tensor, rcb: torch.Tensor,
@@ -68,12 +66,9 @@ def intra_chroma(cb: torch.Tensor, cr: torch.Tensor, rcb: torch.Tensor,
     for t, n in ((cb, "cb"), (cr, "cr"), (rcb, "resid_cb"), (rcr, "resid_cr")):
         _check(t, (Hc, Wc), n)
     _check(params, (mb_h * mb_w, NPARAM), "params")
-    lib = _load()
-    _build.launches["intra_chroma"] += 1
-    err = lib.intra_chroma(cb.data_ptr(), cr.data_ptr(), rcb.data_ptr(), rcr.data_ptr(),
-                           params.data_ptr(), mb_h, mb_w,
-                           torch.cuda.current_stream(cb.device).cuda_stream)
-    _build.check(err, "intra_chroma")
+    _build.launch("intra_chroma", _load().intra_chroma, cb.data_ptr(), cr.data_ptr(),
+                  rcb.data_ptr(), rcr.data_ptr(), params.data_ptr(), mb_h, mb_w,
+                  torch.cuda.current_stream(cb.device).cuda_stream)
 
 
 def intra_frame(y, cb, cr, resid_y, resid_cb, resid_cr, kind, modes4, i16mode,

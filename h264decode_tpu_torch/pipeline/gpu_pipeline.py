@@ -58,8 +58,10 @@ _QPC_TAB = np.concatenate([np.arange(30), np.asarray(_QPC_TAIL)]).astype(np.int3
 # a stream uses longer lists
 R_W_DEFAULT = 16
 
-# device-memory budget for the DPB rings: geometries whose rings would
-# exceed it decode on the host oracle instead of failing in the allocator
+# memory budget for the DPB rings on a CPU device: geometries whose rings
+# would exceed it decode on the host oracle instead of failing in the
+# allocator, as in the JAX package. On a CUDA device the budget is the
+# card's memory, and a ring larger than that raises (see _ring_over_budget)
 RING_BUDGET_MB = 6144
 
 # pictures in flight on the recon worker (host prep + dispatch) while the
@@ -611,6 +613,30 @@ class GpuDecoder(Decoder):
         chroma = n_refs * 2 * (H // 2 + 2 * P) * (W // 2 + 2 * P)
         return luma + chroma
 
+    def _ring_over_budget(self, sps: SPS) -> bool:
+        """True when the DPB rings would exceed RING_BUDGET_MB on a CPU
+        device: the picture then decodes on the host oracle. On a CUDA device
+        no picture leaves the card: rings larger than the card's memory
+        raise MemoryError, and smaller ones are allocated."""
+        need = self.ring_bytes(sps)
+        if self.device.type == "cuda":
+            total = torch.cuda.get_device_properties(self.device).total_memory
+            if need > total:
+                raise MemoryError(
+                    f"GpuDecoder: the DPB rings of this stream need {need >> 20} MB, "
+                    f"more than the {total >> 20} MB of {self.device}"
+                )
+            return False
+        over = need > RING_BUDGET_MB << 20
+        if over and not getattr(self, "_budget_warned", False):
+            self._budget_warned = True
+            print(
+                f"h264decode_tpu_torch: DPB ring would take {need >> 20} MB "
+                f"(> {RING_BUDGET_MB} MB); decoding on the host oracle",
+                file=sys.stderr,
+            )
+        return over
+
     def _ensure_ring(self, sps: SPS) -> int:
         n_refs = max(1, sps.max_num_ref_frames + 1)
         H, W = sps.frame_height_in_mbs * 16, sps.pic_width_in_mbs * 16
@@ -694,15 +720,7 @@ class GpuDecoder(Decoder):
                      cur_uid: int | None = None):
         if cur_uid is None:
             cur_uid = self.uid_counter
-        over_budget = self.ring_bytes(sps) > RING_BUDGET_MB << 20
-        if over_budget and not getattr(self, "_budget_warned", False):
-            self._budget_warned = True
-            print(
-                f"h264decode_tpu_torch: DPB ring would take "
-                f"{self.ring_bytes(sps) >> 20} MB (> {RING_BUDGET_MB} MB); "
-                f"decoding on the host oracle",
-                file=sys.stderr,
-            )
+        over_budget = self._ring_over_budget(sps)
         lossless = sps.qpprime_y_zero_transform_bypass_flag and bool(
             (ft.qp.astype(np.int32) == 0).any()
         )

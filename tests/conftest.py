@@ -17,6 +17,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(1234)

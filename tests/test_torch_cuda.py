@@ -3,10 +3,11 @@
 This module imports no JAX (the card's machine has none); it also holds the
 seeded input generators that tests/test_torch_kernels.py shares.
 
-These need a CUDA device and nvcc; without one they skip (decided inside the
-fixture, never at import). On a machine with a card:
+These need a CUDA device and nvcc: they carry the `cuda` marker and, without
+a card, skip (decided inside the fixture, never at import). On a machine
+with a card:
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest -m cuda tests/ -q
 """
 
 import numpy as np
@@ -18,6 +19,8 @@ from h264decode_tpu_torch.kernels import deblock as t_db
 from h264decode_tpu_torch.kernels import intra as t_intra
 
 torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
 
 
 def _prep_inputs(seed, mb_h=4, mb_w=4):
@@ -70,12 +73,15 @@ def test_intra_kernels_match_plain(cuda, seed, mb_h, mb_w):
     args = [torch.as_tensor(a, device=cuda) for a in _intra_inputs(seed, mb_h, mb_w)]
     plain = t_intra.intra_wavefront(*args, mb_h, mb_w)
     before = dict(_build.launches)
+    diag_before = dict(_build.diag_launches)
     out = intra_cuda.intra_frame(*args, mb_h, mb_w)
     torch.cuda.synchronize()
     for a, b in zip(plain, out):
         assert torch.equal(a, b)
-    assert _build.launches["intra_luma"] == before.get("intra_luma", 0) + 1
-    assert _build.launches["intra_chroma"] == before.get("intra_chroma", 0) + 1
+    for k in ("intra_luma", "intra_chroma"):
+        assert _build.launches[k] == before.get(k, 0) + 1
+        # one kernel per 2:1 anti-diagonal, as the C entry reports it
+        assert _build.diag_launches[k] == diag_before.get(k, 0) + mb_w + 2 * (mb_h - 1)
 
 
 @pytest.mark.parametrize("seed,mb_h,mb_w", [(41, 4, 4), (43, 9, 11)])
@@ -94,10 +100,13 @@ def test_deblock_kernels_match_plain(cuda, seed, mb_h, mb_w):
     cb, cr = (T(np.clip(128 + rng.integers(-10, 11, (8 * mb_h, 8 * mb_w)), 0, 255)
                 .astype(np.uint8)) for _ in range(2))
     plain = t_db.deblock_frame(y, cb, cr, prep, mb_h, mb_w)
+    diag_before = dict(_build.diag_launches)
     out = deblock_cuda.deblock_frame(y, cb, cr, prep, mb_h, mb_w)
     torch.cuda.synchronize()
     for a, b in zip(plain, out):
         assert torch.equal(a, b)
+    for k in ("deblock_luma", "deblock_chroma"):
+        assert _build.diag_launches[k] == diag_before.get(k, 0) + mb_w + 2 * (mb_h - 1)
 
 
 def test_wrappers_refuse_bad_tensors(cuda):

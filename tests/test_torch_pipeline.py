@@ -126,6 +126,25 @@ def test_rings_over_budget_decode_on_the_oracle(monkeypatch):
     assert_frames_equal(lavc.decode_annexb(bs), ours)
 
 
+def test_rings_larger_than_the_card_raise_on_cuda(monkeypatch):
+    """On a CUDA device the budget is the card's memory, and a ring that
+    cannot fit raises instead of sending pictures to the host oracle."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(gpu_pipeline, "RING_BUDGET_MB", 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(total_memory=64 << 20))
+    with GpuDecoder(device="cpu") as dec:
+        dec.device = torch.device("cuda", 0)  # only the guard reads it here
+        cif = SimpleNamespace(max_num_ref_frames=3, frame_height_in_mbs=18,
+                              pic_width_in_mbs=22)
+        assert not dec._ring_over_budget(cif)  # fits: stays on the card
+        uhd = SimpleNamespace(max_num_ref_frames=16, frame_height_in_mbs=135,
+                              pic_width_in_mbs=240)
+        with pytest.raises(MemoryError, match="DPB rings"):
+            dec._ring_over_budget(uhd)
+
+
 def test_cli_decodes_cif_smoke_stream_to_committed_md5s(tmp_path):
     with open(os.path.join(DATA, "smoke_md5.json")) as f:
         want = json.load(f)["smoke_cif_high.h264"]

@@ -13,13 +13,16 @@ raises on failure, and the script then exits non-zero):
    geometry (68 x 120 MBs), on seeded inputs that cover every MB kind, all
    9 Intra4x4/8x8 modes, all 4 Intra16x16 and chroma modes, random
    availability combinations, bS 0..4 and QP 0 and 51. Bit-exact
-   (tolerance 0: integer outputs). Kernel times: CUDA events around the
-   replay of a CUDA graph that holds one call's launches, median of 5
-   (the eager call's event time, which includes the host's enqueue gaps,
-   is printed beside it). Plain versions: events around the call.
+   (tolerance 0: integer outputs). Race check by repetition: each
+   kernel's call is captured in a CUDA graph and replayed 20 times from the
+   reset inputs, every replay bit-exact against the plain output. Kernel
+   times: CUDA events around one replay of that graph, median of 5 (the
+   eager call's event time, which includes the host's enqueue gaps, is
+   printed beside it). Plain versions: events around the call.
 3. The main path: the committed 1080p Main CABAC stream through GpuDecoder
    (launch counters set to 0 just before, read just after; every kernel
-   must have launched and the native entropy engine must have decoded),
+   must have launched, the persistent luma kernels exactly one device
+   kernel per call, and the native entropy engine must have decoded),
    and through `python -m h264decode_tpu_torch decode`. Every frame's
    per-plane MD5 must equal libavcodec's committed MD5s. Prints frames/s
    from the median of three decodes (timing fence:
@@ -52,6 +55,8 @@ OUT = os.path.join(ROOT, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 table entry)
 MB_H, MB_W = 68, 120  # 1920x1088 coded
+REPLAYS = 20  # graph replays per kernel in the race check
+ROW_KERNELS = ("intra_luma", "deblock_luma")  # one persistent launch per call
 
 
 def log(msg: str):
@@ -88,11 +93,8 @@ def cuda_ms(fn, setup=None, runs: int = 5, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, reset, runs: int = 5) -> float:
-    """Median device time in ms of fn()'s kernels, captured once in a CUDA
-    graph and replayed: the launches of one call (254 diagonals at 1080p)
-    run back to back, so the host's enqueue speed does not enter. reset()
-    (not timed) restores fn's tensors in place before each replay."""
+def capture(fn, reset):
+    """fn()'s launches captured once in a CUDA graph (after reset())."""
     import torch
 
     g = torch.cuda.CUDAGraph()
@@ -100,7 +102,31 @@ def graph_ms(fn, reset, runs: int = 5) -> float:
     torch.cuda.synchronize()
     with torch.cuda.graph(g):  # fn launches on the capture stream
         fn()
+    return g
+
+
+def graph_ms(g, reset, runs: int = 5) -> float:
+    """Median device time in ms of one replay of graph g: the launches of
+    one call (one persistent kernel for the luma kernels, 254 diagonals for
+    the chroma kernels at 1080p) run back to back, so the host's enqueue
+    speed does not enter. reset() (not timed) restores the tensors in place
+    before each replay."""
     return cuda_ms(g.replay, reset, runs=runs)
+
+
+def replay_check(name: str, g, reset, outs, wants, n: int = REPLAYS) -> None:
+    """Race check by repetition: replay g n times from the reset inputs and
+    hold every replay's outputs to the plain outputs, bit for bit."""
+    import torch
+
+    for i in range(n):
+        reset()
+        g.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, wants):
+            if not torch.equal(o, w):
+                raise RuntimeError(f"{name}: graph replay {i} of {n} differs from the "
+                                   f"plain version")
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -203,7 +229,10 @@ def kernel_phase(dev) -> dict:
     run_l = lambda: intra_cuda.intra_luma(work["y"], t["ry"], params, MB_H, MB_W)  # noqa: E731
     run_c = lambda: intra_cuda.intra_chroma(work["cb"], work["cr"], t["rcb"],  # noqa: E731
                                             t["rcr"], params, MB_H, MB_W)
-    ms_l, ms_c = graph_ms(run_l, reset_intra), graph_ms(run_c, reset_intra)
+    g_l, g_c = capture(run_l, reset_intra), capture(run_c, reset_intra)
+    replay_check("intra_luma", g_l, reset_intra, [work["y"]], plain[:1])
+    replay_check("intra_chroma", g_c, reset_intra, [work["cb"], work["cr"]], plain[1:])
+    ms_l, ms_c = graph_ms(g_l, reset_intra), graph_ms(g_c, reset_intra)
     eager_l, eager_c = cuda_ms(run_l, reset_intra), cuda_ms(run_c, reset_intra)
     ms_plain = cuda_ms(lambda: intra_wavefront(*args), runs=2)
     n_intra = int((t["kind"] > 0).sum())
@@ -230,7 +259,8 @@ def kernel_phase(dev) -> dict:
     log(f"intra: max_abs_err luma {err_l} chroma {err_c}; kernel ms (graph replay) luma "
         f"{ms_l} chroma {ms_c}; eager call (events around the enqueue) luma {eager_l} "
         f"chroma {eager_c}; plain (both) {ms_plain} ms; "
-        f"MBs I4 {n_i4} I8 {n_i8} I16 {n_i16} of {n}")
+        f"MBs I4 {n_i4} I8 {n_i8} I16 {n_i16} of {n}; {REPLAYS} graph replays of each "
+        f"bit-exact")
 
     # ---- deblock
     (y0, cb0, cr0), prep = deblock_inputs(dev)
@@ -254,7 +284,10 @@ def kernel_phase(dev) -> dict:
     run_l = lambda: deblock_cuda.deblock_luma(dw["y"], prep, MB_H, MB_W)  # noqa: E731
     run_c = lambda: deblock_cuda.deblock_chroma(dw["cb"], dw["cr"], prep,  # noqa: E731
                                                 MB_H, MB_W)
-    ms_l, ms_c = graph_ms(run_l, reset_db), graph_ms(run_c, reset_db)
+    g_l, g_c = capture(run_l, reset_db), capture(run_c, reset_db)
+    replay_check("deblock_luma", g_l, reset_db, [dw["y"]], plain[:1])
+    replay_check("deblock_chroma", g_c, reset_db, [dw["cb"], dw["cr"]], plain[1:])
+    ms_l, ms_c = graph_ms(g_l, reset_db), graph_ms(g_c, reset_db)
     eager_l, eager_c = cuda_ms(run_l, reset_db), cuda_ms(run_c, reset_db)
     ms_plain = cuda_ms(lambda: deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W), runs=2)
     mb_any = ((prep["bs_v"] > 0) | (prep["bs_h"] > 0)).reshape(MB_H, 4, MB_W, 4).any(3).any(1)
@@ -279,7 +312,7 @@ def kernel_phase(dev) -> dict:
     log(f"deblock: max_abs_err luma {err_l} chroma {err_c}; kernel ms (graph replay) luma "
         f"{ms_l} chroma {ms_c}; eager call (events around the enqueue) luma {eager_l} "
         f"chroma {eager_c}; plain (both) {ms_plain} ms; active MBs {n_act} of {n}; "
-        f"samples changed by the filter {changed}")
+        f"samples changed by the filter {changed}; {REPLAYS} graph replays of each bit-exact")
     bad = {k: v["max_abs_err"] for k, v in res.items() if v["max_abs_err"] != 0}
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
@@ -460,6 +493,10 @@ def main() -> int:
     for k in names:
         kernels[k]["launches"] = mp["launches"][k]
         kernels[k]["inner_launches_per_call"] = mp["diag"][k] / mp["launches"][k]
+    many = {k: kernels[k]["inner_launches_per_call"] for k in ROW_KERNELS
+            if kernels[k]["inner_launches_per_call"] != 1.0}
+    if many:
+        raise RuntimeError(f"persistent kernels launched more than once per call: {many}")
     log(f"setup+run {time.time() - t0:.1f} s")
     log(json.dumps({"kernels": list(kernels.values()),
                     "main_path": {"stream": "smoke_1080p_main_cabac.h264",

@@ -9,24 +9,37 @@
 // What bounds it on this card: the filter runs in raster MB order, and
 // each MB rewrites up to 3 columns of its left neighbour and 3 rows of its
 // top neighbour, so MB (x, y) must run after (x-1, y), (x, y-1) and after
-// (x+1, y-1) has filtered its left edge. On the 2:1 anti-diagonal
-// d = mbx + 2*mby these lie on earlier diagonals, which leaves a serial
-// chain of mb_w + 2*(mb_h - 1) steps (254 at 1080p). The bytes (one read and
-// one write of the uint8 planes plus the per-cell edge parameters) take a
-// few microseconds at 3.35 TB/s; the chain of launches bounds it.
+// (x+1, y-1) has filtered its left edge. That leaves a serial chain of
+// mb_w + 2*(mb_h - 1) MB steps (254 at 1080p). The bytes (one read and one
+// write of the uint8 planes plus the per-cell edge parameters) take a few
+// microseconds at 3.35 TB/s; the time of one step of the chain (the
+// hand-off between rows plus one MB's own latency) times 254 bounds it.
 //
-// Design: one C entry per kernel loops over the diagonals on the host side
-// and launches one block per MB of the diagonal on the caller's stream (one
-// ctypes call per frame), and reports through *n_launched how many kernels
-// it launched. A luma block has 16 threads: thread r filters
-// line r across the 4 vertical edges left to right, then (after one
-// __syncthreads()) thread c filters column c across the 4 horizontal edges
-// top to bottom, which is the spec's order. Chroma: 16 threads, 8 lines
-// per component, luma edges 0 and 2, tC = tC0 + 1, bS = 4 changes p0/q0
-// only. A block whose MB has bS = 0 on every edge returns at once (the
-// filter would be the identity), the counterpart of the Pallas kernels'
-// skip of blocks whose bS are all zero. A persistent design is left for
-// later.
+// Luma design (deblock_luma_rows): one persistent launch per call, one
+// block of 16 threads per MB row, rows handed on through progress counters
+// in device memory (wavefront.cuh); MB (x, y) waits until row y-1 has
+// finished MB x+1. The block keeps a shared tile of its MB, the 4 columns to
+// its left (carried over from the MB it filtered just before) and the 4 rows
+// above; only the rows above come from device memory after the wait. The
+// MB's own samples (no other block writes them before this block does) and
+// its bS / indexA / indexB cells are loaded into registers one MB ahead, so
+// they overlap the wait. In the tile, thread r filters line r across the 4
+// vertical edges left to right, then (after one __syncthreads()) thread c
+// filters column c across the 4 horizontal edges top to bottom, which is
+// the spec's order; then the MB, its left strip and its top strip go back
+// to the plane. Only the top edge reads or writes row y-1's samples, so the
+// vertical edges run before the wait, and an MB whose top edge has bS = 0
+// does not wait at all. An MB with bS = 0 on every edge neither waits nor
+// writes (the filter would be the identity), the counterpart of the Pallas
+// kernels' skip of blocks whose bS are all zero; it only publishes.
+//
+// Chroma (deblock_chroma_diag) still loops over the 2:1 anti-diagonals
+// d = mbx + 2*mby on the host, one launch of one block of 16 threads (8
+// lines per component, luma edges 0 and 2, tC = tC0 + 1, bS = 4 changes
+// p0/q0 only) per MB per diagonal.
+//
+// The C entry points take the caller's stream and report through
+// *n_launched how many kernels they launched (1 for luma).
 //
 // Data layout: planes y [H, W], cb/cr [Hc, Wc] uint8, filtered in place.
 // Edge parameters per 4x4 cell edge, int32 [H4, W4] (chroma thresholds
@@ -34,10 +47,13 @@
 // luma indexA/indexB ia_*/ib_*, chroma ca_*/cb_*. tabs = alpha[52],
 // beta[52], tc0[52][3] (Table 8-16/8-17), int32. bS must be 0 on the
 // picture's boundary edges (the prep guarantees it); the kernels never
-// read outside the picture.
+// read outside the picture. The luma entry also takes sync, int32[mb_h + 1]
+// of scratch, which it zeroes on the stream before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wavefront.cuh"
 
 namespace {
 
@@ -107,31 +123,98 @@ __device__ bool mb_active(const int* bs_v, const int* bs_h, int W4, int mbx, int
   return __syncthreads_or(bs_v[cell] > 0 || bs_h[cell] > 0);
 }
 
-__global__ void __launch_bounds__(16) deblock_luma_diag(
-    uint8_t* __restrict__ y, const int* __restrict__ bs_v, const int* __restrict__ bs_h,
+// 16 bytes of a 4-byte-aligned shared row, as 4 words
+__device__ __forceinline__ void put16(uint8_t* dst, uint4 v) {
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+}
+
+__device__ __forceinline__ uint4 get16(const uint8_t* src) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+  return make_uint4(s[0], s[1], s[2], s[3]);
+}
+
+// Luma: one block of 16 threads per MB row. tile[r][c] holds picture sample
+// (16*row - 4 + r, 16*mbx - 4 + c): rows 0..3 the rows above the MB
+// (columns 4..19 only), columns 0..3 the left MB's last 4 columns (rows
+// 4..19 only), rows/columns 4..19 the MB. prm[k][cell] holds the MB's 16
+// cells of bs_v, ia_v, ib_v, bs_h, ia_h, ib_h (cell = 4 * cell row + cell col).
+__global__ void __launch_bounds__(16) deblock_luma_rows(
+    uint8_t* y, const int* __restrict__ bs_v, const int* __restrict__ bs_h,
     const int* __restrict__ ia_v, const int* __restrict__ ib_v,
     const int* __restrict__ ia_h, const int* __restrict__ ib_h,
-    const int* __restrict__ tabs, int mb_h, int mb_w, int d, int mby0) {
-  const int mby = mby0 + blockIdx.x, mbx = d - 2 * mby;
-  const int W4 = 4 * mb_w, W = 16 * mb_w;
-  if (!mb_active(bs_v, bs_h, W4, mbx, mby)) return;
+    const int* __restrict__ tabs, int* sync, int mb_h, int mb_w) {
+  __shared__ __align__(16) uint8_t tile[20][20];
+  __shared__ int prm[6][16];
+  const int row = wavefront::take_row(sync);
+  const int W = 16 * mb_w, W4 = 4 * mb_w;
   const int t = threadIdx.x;
-  // vertical edges, left to right: thread t owns line (row) t
-  for (int e = 0; e < 4; ++e) {
-    const int x = 16 * mbx + 4 * e;
-    const int cell = (4 * mby + (t >> 2)) * W4 + 4 * mbx + e;
-    const int bs = bs_v[cell];
-    if (bs > 0 && x > 0)
-      filter_luma_line(y + (16 * mby + t) * W + x, 1, bs, ia_v[cell], ib_v[cell], tabs);
-  }
-  __syncthreads();
-  // horizontal edges, top to bottom: thread t owns column t
-  for (int e = 0; e < 4; ++e) {
-    const int r = 16 * mby + 4 * e;
-    const int cell = (4 * mby + e) * W4 + 4 * mbx + (t >> 2);
-    const int bs = bs_h[cell];
-    if (bs > 0 && r > 0)
-      filter_luma_line(y + r * W + 16 * mbx + t, W, bs, ia_h[cell], ib_h[cell], tabs);
+  const int* grids[6] = {bs_v, ia_v, ib_v, bs_h, ia_h, ib_h};
+  const int cell0 = (4 * row + (t >> 2)) * W4 + (t & 3);  // thread t's cell of MB 0
+  uint8_t* line = y + (16 * row + t) * W;                  // thread t's MB line
+  // MB 0, one MB ahead: line t of its samples and cell t of its parameters
+  uint4 nline = __ldcg(reinterpret_cast<const uint4*>(line));
+  int ncell[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) ncell[k] = __ldg(grids[k] + cell0);
+  for (int mbx = 0; mbx < mb_w; ++mbx) {
+    put16(&tile[4 + t][4], nline);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) prm[k][t] = ncell[k];
+    const bool active = __syncthreads_or(ncell[0] > 0 || ncell[3] > 0);
+    if (mbx + 1 < mb_w) {
+      nline = __ldcg(reinterpret_cast<const uint4*>(line + 16 * (mbx + 1)));
+#pragma unroll
+      for (int k = 0; k < 6; ++k) ncell[k] = __ldg(grids[k] + cell0 + 4 * (mbx + 1));
+    }
+    if (active) {
+      // vertical edges, left to right: thread t owns line t. They touch
+      // this row's lines only (the tile), so they run before the wait.
+      for (int e = 0; e < 4; ++e) {
+        const int c = (t >> 2) * 4 + e, bs = prm[0][c];
+        if (bs > 0 && (mbx > 0 || e > 0))
+          filter_luma_line(&tile[4 + t][4 + 4 * e], 1, bs, prm[1][c], prm[2][c], tabs);
+      }
+      // Why the vertical edges may run before the wait, and an MB with a
+      // bS = 0 top edge may skip it (a chroma port must not copy the skip
+      // without this footprint argument): MB (x, row) writes lines
+      // 16*row-3 .. 16*row+15 of columns 16x-4 .. 16x+15, and only its top
+      // edge touches lines of row-1. No block of row-1 ever reads or writes
+      // a line of this row. Row+1's MB x' writes this row's last 3 lines,
+      // columns 16x' .. 16x'+15, only after this row has published x'+2
+      // MBs, so nothing but this block has written columns 16x-4 .. 16x+15
+      // of this row's lines when it loads them (one MB ahead) or filters
+      // them. Row-1's lines under MB x are final only once row-1
+      // has finished MB x+1 (its left-edge filter rewrites columns
+      // 16x+12 .. 16x+15): hence the wait, before the top edge alone.
+      const bool top = row > 0 && (prm[3][0] | prm[3][1] | prm[3][2] | prm[3][3]) > 0;
+      if (top) {
+        wavefront::wait_row(sync, row, min(mbx + 2, mb_w));
+        if (t < 4)
+          put16(&tile[t][4], __ldcg(reinterpret_cast<const uint4*>(
+                                 y + (16 * row - 4 + t) * W + 16 * mbx)));
+      }
+      __syncthreads();
+      // horizontal edges, top to bottom: thread t owns column t
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * e + (t >> 2), bs = prm[3][c];
+        if (bs > 0 && (row > 0 || e > 0))
+          filter_luma_line(&tile[4 + 4 * e][4 + t], 20, bs, prm[4][c], prm[5][c], tabs);
+      }
+      __syncthreads();
+      // back to the plane: line t with the left strip, rows -3..-1 above
+      uint8_t* g = line + 16 * mbx;
+      if (mbx > 0) *reinterpret_cast<uint32_t*>(g - 4) =
+                       *reinterpret_cast<const uint32_t*>(&tile[4 + t][0]);
+      *reinterpret_cast<uint4*>(g) = get16(&tile[4 + t][4]);
+      if (top && t < 3)
+        *reinterpret_cast<uint4*>(y + (16 * row - 3 + t) * W + 16 * mbx) =
+            get16(&tile[1 + t][4]);
+    }
+    // the MB's last 4 columns are the next MB's left strip (own line only)
+    *reinterpret_cast<uint32_t*>(&tile[4 + t][0]) =
+        *reinterpret_cast<const uint32_t*>(&tile[4 + t][16]);
+    wavefront::publish_row(sync, row, mbx + 1);
   }
 }
 
@@ -177,23 +260,19 @@ inline int diag_hi(int d, int mb_h) { return d / 2 < mb_h - 1 ? d / 2 : mb_h - 1
 
 extern "C" int deblock_luma(void* y, const void* bs_v, const void* bs_h, const void* ia_v,
                             const void* ib_v, const void* ia_h, const void* ib_h,
-                            const void* tabs, int mb_h, int mb_w, void* stream,
+                            const void* tabs, void* sync, int mb_h, int mb_w, void* stream,
                             int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
-  for (int d = 0; d < mb_w + 2 * (mb_h - 1); ++d) {  // 254 at 1080p
-    int lo = diag_lo(d, mb_w), hi = diag_hi(d, mb_h);
-    if (hi < lo) continue;
-    deblock_luma_diag<<<hi - lo + 1, 16, 0, s>>>(
-        static_cast<uint8_t*>(y), static_cast<const int*>(bs_v),
-        static_cast<const int*>(bs_h), static_cast<const int*>(ia_v),
-        static_cast<const int*>(ib_v), static_cast<const int*>(ia_h),
-        static_cast<const int*>(ib_h), static_cast<const int*>(tabs), mb_h, mb_w, d, lo);
-    ++*n_launched;
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
+  cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (mb_h + 1), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  deblock_luma_rows<<<mb_h, 16, 0, s>>>(
+      static_cast<uint8_t*>(y), static_cast<const int*>(bs_v), static_cast<const int*>(bs_h),
+      static_cast<const int*>(ia_v), static_cast<const int*>(ib_v),
+      static_cast<const int*>(ia_h), static_cast<const int*>(ib_h),
+      static_cast<const int*>(tabs), static_cast<int*>(sync), mb_h, mb_w);
+  *n_launched = 1;
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int deblock_chroma(void* cb, void* cr, const void* bs_v, const void* bs_h,

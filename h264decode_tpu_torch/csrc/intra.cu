@@ -8,32 +8,43 @@
 //
 // What bounds it on this card: the spec makes each macroblock depend on
 // its reconstructed left, top, top-right and top-left neighbours, so the
-// frame is a serial chain. Macroblocks on the 2:1 anti-diagonal
-// d = mbx + 2*mby are independent (neighbours lie on diagonals d-1, d-2,
-// d-1 and d-3), which leaves a chain of mb_w + 2*(mb_h - 1) steps (254 at
-// 1080p) of at most mb_h macroblocks each. The bytes are small (one read
-// of the planes, residual and per-MB parameters, one write of the planes),
-// so launch latency times the chain length bounds it, not bandwidth.
+// frame is a serial chain of mb_w + 2*(mb_h - 1) MB steps (254 at 1080p):
+// MB (x, y) can start once row y-1 has finished MB x+1. The bytes are small
+// (one read of the planes, residual and per-MB parameters, one write of the
+// planes: a few microseconds at 3.35 TB/s), so the time of one step of the
+// chain (the hand-off between rows plus one MB's own latency) times 254
+// bounds it, not bandwidth.
 //
-// Design: one C entry per kernel loops over the diagonals on the host side
-// and launches one block per macroblock of the diagonal on the caller's
-// stream (one ctypes call per frame), and reports through *n_launched how
-// many kernels it launched. Inside a block, threads cover the
-// MB's pixels; the MB and its neighbour strips live in shared memory, and
-// Intra4x4 / Intra8x8 walk their sub-blocks in z-order with __syncthreads()
-// between them. A block whose MB is not intra returns at once (its pixels
-// keep their inter/PCM values), the counterpart of the Pallas kernels'
-// skip of blocks without intra MBs. A persistent single-launch design is
-// left for later.
+// Luma design (intra_luma_rows): one persistent launch per call, one block
+// of 256 threads per MB row, rows handed on through progress counters in
+// device memory (wavefront.cuh). The block keeps the reconstructed right
+// column of its last MB in shared memory as the next MB's left column; only
+// the 25 samples of the row above (columns -1..23) come from device memory,
+// after the wait. The next MB's parameter row and 16x16 residual depend on
+// no other block and are loaded into registers before the wait, so they
+// overlap it. Intra4x4 / Intra8x8 walk their sub-blocks in z-order with
+// __syncthreads() between them. A non-intra MB only publishes its progress
+// (its pixels keep their inter/PCM values), the counterpart of the Pallas
+// kernels' skip of blocks without intra MBs.
+//
+// Chroma (intra_chroma_diag) still loops over the 2:1 anti-diagonals
+// d = mbx + 2*mby on the host, one launch of one block per MB per diagonal.
+//
+// The C entry points take the caller's stream and report through
+// *n_launched how many kernels they launched (1 for luma).
 //
 // Data layout (all int32, contiguous): planes y [H, W], cb/cr [Hc, Wc],
 // updated in place; residual planes of the same shapes; params [nMB, 20]
 // = kind, i16mode, cmode, avail bits (1 left, 2 top, 4 top-right,
 // 8 top-left), modes4[16] (z-order; 8x8 modes in the first 4). Samples
-// outside the picture read as 0, as in the plain version.
+// outside the picture read as 0, as in the plain version. The luma entry
+// also takes sync, int32[mb_h + 1] of scratch, which it zeroes on the
+// stream before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wavefront.cuh"
 
 namespace {
 
@@ -100,119 +111,136 @@ __device__ int pred_nxn(int mode, int x, int y, const int* t, const int* l, int 
   }
 }
 
-// Luma: one block of 256 threads per intra macroblock on diagonal d.
-// sm[r][c] holds picture sample (16*mby - 1 + r, 16*mbx - 1 + c): row 0 is
-// the row above (columns -1..23, reaching into the top-right MB), column 0
-// the column to the left; rows 1..16, columns 1..16 the MB itself.
-__global__ void __launch_bounds__(256) intra_luma_diag(
-    int* __restrict__ y, const int* __restrict__ res, const int* __restrict__ prm,
-    int mb_h, int mb_w, int d, int mby0) {
-  const int mby = mby0 + blockIdx.x, mbx = d - 2 * mby;
-  const int* p = prm + (mby * mb_w + mbx) * NPARAM;
-  const int kind = p[0];
-  if (kind != K_I4 && kind != K_I8 && kind != K_I16) return;
-  const int W = mb_w * 16, H = mb_h * 16;
-  const int tid = threadIdx.x;
-  const int av = p[3];
-  const bool avl = av & AV_L, avt = av & AV_T, avtr = av & AV_TR, avtl = av & AV_TL;
+// Luma: one block of 256 threads per MB row; thread tid covers sample
+// (tid >> 4, tid & 15) of the MB. sm[r][c] holds picture sample
+// (16*row - 1 + r, 16*mbx - 1 + c): row 0 is the row above (columns -1..23,
+// reaching into the top-right MB), column 0 the column to the left; rows
+// 1..16, columns 1..16 the MB itself. rs is the MB's residual, sp its
+// parameter row.
+__global__ void __launch_bounds__(256) intra_luma_rows(
+    int* y, const int* __restrict__ res, const int* __restrict__ prm, int* sync,
+    int mb_h, int mb_w) {
   __shared__ int sm[17][25];
-  const int r0 = 16 * mby - 1, c0 = 16 * mbx - 1;
-  for (int i = tid; i < 17 * 25; i += 256) {
-    int r = i / 25, c = i % 25;
-    int gr = r0 + r, gc = c0 + c;
-    int v = 0;
-    if ((r == 0 || c <= 16) && gr >= 0 && gr < H && gc >= 0 && gc < W) v = y[gr * W + gc];
-    sm[r][c] = v;
-  }
-  __syncthreads();
+  __shared__ int rs[16][16];
+  __shared__ int sp[NPARAM];
+  const int row = wavefront::take_row(sync);
+  const int W = mb_w * 16;
+  const int tid = threadIdx.x, px = tid & 15, py = tid >> 4;
+  const int* res_row = res + (16 * row + py) * W + px;
+  const int* prm_row = prm + row * mb_w * NPARAM;
+  // the next MB's residual sample and parameter (no block writes them)
+  int nres = __ldg(res_row), nprm = tid < NPARAM ? __ldg(prm_row + tid) : 0;
+  bool have_left = false;  // sm[1..16][0] holds the left MB's final column
+  for (int mbx = 0; mbx < mb_w; ++mbx) {
+    rs[py][px] = nres;
+    if (tid < NPARAM) sp[tid] = nprm;
+    __syncthreads();
+    if (mbx + 1 < mb_w) {
+      nres = __ldg(res_row + 16 * (mbx + 1));
+      if (tid < NPARAM) nprm = __ldg(prm_row + (mbx + 1) * NPARAM + tid);
+    }
+    const int kind = sp[0];
+    if (kind != K_I4 && kind != K_I8 && kind != K_I16) {
+      have_left = false;  // this MB's samples stay as they are in y
+      wavefront::publish_row(sync, row, mbx + 1);
+      continue;
+    }
+    if (!have_left && tid < 16)  // left MB not intra: its samples are final in y
+      sm[1 + tid][0] = mbx > 0 ? __ldcg(y + (16 * row + tid) * W + 16 * mbx - 1) : 0;
+    wavefront::wait_row(sync, row, min(mbx + 2, mb_w));
+    if (tid < 25) {
+      const int gc = 16 * mbx - 1 + tid;
+      sm[0][tid] = (row > 0 && gc >= 0 && gc < W) ? __ldcg(y + (16 * row - 1) * W + gc) : 0;
+    }
+    __syncthreads();
+    const int av = sp[3];
+    const bool avl = av & AV_L, avt = av & AV_T, avtr = av & AV_TR, avtl = av & AV_TL;
 
-  if (kind == K_I16) {
-    const int x = tid & 15, yy = tid >> 4;
-    const int m = sm[0][0];
-    int st = 0, sl = 0, hs = 0, vs = 0;
-    for (int i = 0; i < 16; ++i) { st += sm[0][1 + i]; sl += sm[1 + i][0]; }
-    for (int k = 0; k < 8; ++k) {
-      int ta = sm[0][9 + k], tb = (k == 7) ? m : sm[0][7 - k];
-      int la = sm[9 + k][0], lb = (k == 7) ? m : sm[7 - k][0];
-      hs += (k + 1) * (ta - tb);
-      vs += (k + 1) * (la - lb);
-    }
-    const int mode = min(max(p[1], 0), 3);
-    int pred;
-    if (mode == 0) pred = sm[0][1 + x];
-    else if (mode == 1) pred = sm[1 + yy][0];
-    else if (mode == 2) pred = dc3(avl, avt, (st + sl + 16) >> 5, (st + 8) >> 4, (sl + 8) >> 4);
-    else {
-      int a = 16 * (sm[16][0] + sm[0][16]);
-      int b = (5 * hs + 32) >> 6, c = (5 * vs + 32) >> 6;
-      pred = clip255((a + b * (x - 7) + c * (yy - 7) + 16) >> 5);
-    }
-    int gr = 16 * mby + yy, gc = 16 * mbx + x;
-    y[gr * W + gc] = clip255(pred + res[gr * W + gc]);
-    return;
-  }
-
-  if (kind == K_I4) {
-    for (int k = 0; k < 16; ++k) {
-      const int bx = kBX[k], by = kBY[k];
-      if (tid < 16) {
-        const int x = tid & 3, yy = tid >> 2;
-        const int R = 4 * by, C = 4 * bx;  // sm row of the row above, sm col of the left column
-        int t[8], l[4];
-        for (int i = 0; i < 8; ++i) t[i] = sm[R][C + 1 + i];
-        for (int j = 0; j < 4; ++j) l[j] = sm[R + 1 + j][C];
-        const int m = sm[R][C];
-        const bool hl = bx > 0 || avl, ht = by > 0 || avt;
-        const bool htr = by > 0 ? (kTR[k] != 0) : (bx < 3 ? avt : avtr);
-        if (!htr) for (int i = 4; i < 8; ++i) t[i] = t[3];
-        int st = t[0] + t[1] + t[2] + t[3], sl = l[0] + l[1] + l[2] + l[3];
-        int dc = dc3(hl, ht, (st + sl + 4) >> 3, (st + 2) >> 2, (sl + 2) >> 2);
-        int mode = min(max(p[4 + k], 0), 8);
-        int pred = pred_nxn<4>(mode, x, yy, t, l, m, dc);
-        int gr = 16 * mby + 4 * by + yy, gc = 16 * mbx + 4 * bx + x;
-        sm[R + 1 + yy][C + 1 + x] = clip255(pred + res[gr * W + gc]);
+    if (kind == K_I16) {
+      const int m = sm[0][0];
+      int st = 0, sl = 0, hs = 0, vs = 0;
+      for (int i = 0; i < 16; ++i) { st += sm[0][1 + i]; sl += sm[1 + i][0]; }
+      for (int k = 0; k < 8; ++k) {
+        int ta = sm[0][9 + k], tb = (k == 7) ? m : sm[0][7 - k];
+        int la = sm[9 + k][0], lb = (k == 7) ? m : sm[7 - k][0];
+        hs += (k + 1) * (ta - tb);
+        vs += (k + 1) * (la - lb);
       }
-      __syncthreads();
-    }
-  } else {  // K_I8
-    for (int b8 = 0; b8 < 4; ++b8) {
-      const int bx8 = b8 & 1, by8 = b8 >> 1;
-      if (tid < 64) {
-        const int x = tid & 7, yy = tid >> 3;
-        const int R = 8 * by8, C = 8 * bx8;
-        int t[16], l[8];
-        for (int i = 0; i < 16; ++i) t[i] = sm[R][C + 1 + i];
-        for (int j = 0; j < 8; ++j) l[j] = sm[R + 1 + j][C];
-        const int m = sm[R][C];
-        const bool hl = bx8 > 0 || avl, ht = by8 > 0 || avt;
-        const bool htr = by8 == 0 ? (bx8 == 0 ? avt : avtr) : (bx8 == 0);
-        const bool hc = b8 == 0 ? avtl : (b8 == 1 ? avt : (b8 == 2 ? avl : true));
-        if (!htr) for (int i = 8; i < 16; ++i) t[i] = t[7];
-        // 8.3.2.2.1 reference sample filtering
-        const int tl = hc ? m : 0;
-        int ft[16], fl[8];
-        ft[0] = hc ? (tl + 2 * t[0] + t[1] + 2) >> 2 : (3 * t[0] + t[1] + 2) >> 2;
-        for (int i = 1; i < 15; ++i) ft[i] = (t[i - 1] + 2 * t[i] + t[i + 1] + 2) >> 2;
-        ft[15] = (t[14] + 3 * t[15] + 2) >> 2;
-        fl[0] = hc ? (tl + 2 * l[0] + l[1] + 2) >> 2 : (3 * l[0] + l[1] + 2) >> 2;
-        for (int j = 1; j < 7; ++j) fl[j] = (l[j - 1] + 2 * l[j] + l[j + 1] + 2) >> 2;
-        fl[7] = (l[6] + 3 * l[7] + 2) >> 2;
-        const int fm = (hl && ht) ? (t[0] + 2 * m + l[0] + 2) >> 2
-                     : ht ? (3 * m + t[0] + 2) >> 2
-                     : hl ? (3 * m + l[0] + 2) >> 2 : m;
-        int st = 0, sl = 0;
-        for (int i = 0; i < 8; ++i) { st += ft[i]; sl += fl[i]; }
-        int dc = dc3(hl, ht, (st + sl + 8) >> 4, (st + 4) >> 3, (sl + 4) >> 3);
-        int mode = min(max(p[4 + b8], 0), 8);
-        int pred = pred_nxn<8>(mode, x, yy, ft, fl, fm, dc);
-        int gr = 16 * mby + 8 * by8 + yy, gc = 16 * mbx + 8 * bx8 + x;
-        sm[R + 1 + yy][C + 1 + x] = clip255(pred + res[gr * W + gc]);
+      const int mode = min(max(sp[1], 0), 3);
+      int pred;
+      if (mode == 0) pred = sm[0][1 + px];
+      else if (mode == 1) pred = sm[1 + py][0];
+      else if (mode == 2) pred = dc3(avl, avt, (st + sl + 16) >> 5, (st + 8) >> 4, (sl + 8) >> 4);
+      else {
+        int a = 16 * (sm[16][0] + sm[0][16]);
+        int b = (5 * hs + 32) >> 6, c = (5 * vs + 32) >> 6;
+        pred = clip255((a + b * (px - 7) + c * (py - 7) + 16) >> 5);
       }
+      // reads touch row 0 and column 0 only, writes the interior: no hazard
+      sm[1 + py][1 + px] = clip255(pred + rs[py][px]);
       __syncthreads();
+    } else if (kind == K_I4) {
+      for (int k = 0; k < 16; ++k) {
+        const int bx = kBX[k], by = kBY[k];
+        if (tid < 16) {
+          const int x = tid & 3, yy = tid >> 2;
+          const int R = 4 * by, C = 4 * bx;  // sm row of the row above, sm col of the left column
+          int t[8], l[4];
+          for (int i = 0; i < 8; ++i) t[i] = sm[R][C + 1 + i];
+          for (int j = 0; j < 4; ++j) l[j] = sm[R + 1 + j][C];
+          const int m = sm[R][C];
+          const bool hl = bx > 0 || avl, ht = by > 0 || avt;
+          const bool htr = by > 0 ? (kTR[k] != 0) : (bx < 3 ? avt : avtr);
+          if (!htr) for (int i = 4; i < 8; ++i) t[i] = t[3];
+          int st = t[0] + t[1] + t[2] + t[3], sl = l[0] + l[1] + l[2] + l[3];
+          int dc = dc3(hl, ht, (st + sl + 4) >> 3, (st + 2) >> 2, (sl + 2) >> 2);
+          int mode = min(max(sp[4 + k], 0), 8);
+          int pred = pred_nxn<4>(mode, x, yy, t, l, m, dc);
+          sm[R + 1 + yy][C + 1 + x] = clip255(pred + rs[4 * by + yy][4 * bx + x]);
+        }
+        __syncthreads();
+      }
+    } else {  // K_I8
+      for (int b8 = 0; b8 < 4; ++b8) {
+        const int bx8 = b8 & 1, by8 = b8 >> 1;
+        if (tid < 64) {
+          const int x = tid & 7, yy = tid >> 3;
+          const int R = 8 * by8, C = 8 * bx8;
+          int t[16], l[8];
+          for (int i = 0; i < 16; ++i) t[i] = sm[R][C + 1 + i];
+          for (int j = 0; j < 8; ++j) l[j] = sm[R + 1 + j][C];
+          const int m = sm[R][C];
+          const bool hl = bx8 > 0 || avl, ht = by8 > 0 || avt;
+          const bool htr = by8 == 0 ? (bx8 == 0 ? avt : avtr) : (bx8 == 0);
+          const bool hc = b8 == 0 ? avtl : (b8 == 1 ? avt : (b8 == 2 ? avl : true));
+          if (!htr) for (int i = 8; i < 16; ++i) t[i] = t[7];
+          // 8.3.2.2.1 reference sample filtering
+          const int tl = hc ? m : 0;
+          int ft[16], fl[8];
+          ft[0] = hc ? (tl + 2 * t[0] + t[1] + 2) >> 2 : (3 * t[0] + t[1] + 2) >> 2;
+          for (int i = 1; i < 15; ++i) ft[i] = (t[i - 1] + 2 * t[i] + t[i + 1] + 2) >> 2;
+          ft[15] = (t[14] + 3 * t[15] + 2) >> 2;
+          fl[0] = hc ? (tl + 2 * l[0] + l[1] + 2) >> 2 : (3 * l[0] + l[1] + 2) >> 2;
+          for (int j = 1; j < 7; ++j) fl[j] = (l[j - 1] + 2 * l[j] + l[j + 1] + 2) >> 2;
+          fl[7] = (l[6] + 3 * l[7] + 2) >> 2;
+          const int fm = (hl && ht) ? (t[0] + 2 * m + l[0] + 2) >> 2
+                       : ht ? (3 * m + t[0] + 2) >> 2
+                       : hl ? (3 * m + l[0] + 2) >> 2 : m;
+          int st = 0, sl = 0;
+          for (int i = 0; i < 8; ++i) { st += ft[i]; sl += fl[i]; }
+          int dc = dc3(hl, ht, (st + sl + 8) >> 4, (st + 4) >> 3, (sl + 4) >> 3);
+          int mode = min(max(sp[4 + b8], 0), 8);
+          int pred = pred_nxn<8>(mode, x, yy, ft, fl, fm, dc);
+          sm[R + 1 + yy][C + 1 + x] = clip255(pred + rs[8 * by8 + yy][8 * bx8 + x]);
+        }
+        __syncthreads();
+      }
     }
+    y[(16 * row + py) * W + 16 * mbx + px] = sm[1 + py][1 + px];
+    if (tid < 16) sm[1 + tid][0] = sm[1 + tid][16];  // right column -> next MB's left
+    have_left = true;
+    wavefront::publish_row(sync, row, mbx + 1);
   }
-  const int x = tid & 15, yy = tid >> 4;
-  y[(16 * mby + yy) * W + 16 * mbx + x] = sm[1 + yy][1 + x];
 }
 
 // Chroma: one block of 128 threads per intra macroblock (64 per component).
@@ -272,21 +300,17 @@ inline int diag_hi(int d, int mb_h) { return d / 2 < mb_h - 1 ? d / 2 : mb_h - 1
 
 }  // namespace
 
-extern "C" int intra_luma(void* y, const void* res, const void* params, int mb_h,
-                          int mb_w, void* stream, int* n_launched) {
+extern "C" int intra_luma(void* y, const void* res, const void* params, void* sync,
+                          int mb_h, int mb_w, void* stream, int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
-  for (int d = 0; d < mb_w + 2 * (mb_h - 1); ++d) {  // 254 at 1080p
-    int lo = diag_lo(d, mb_w), hi = diag_hi(d, mb_h);
-    if (hi < lo) continue;
-    intra_luma_diag<<<hi - lo + 1, 256, 0, s>>>(
-        static_cast<int*>(y), static_cast<const int*>(res),
-        static_cast<const int*>(params), mb_h, mb_w, d, lo);
-    ++*n_launched;
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
+  cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (mb_h + 1), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  intra_luma_rows<<<mb_h, 256, 0, s>>>(static_cast<int*>(y), static_cast<const int*>(res),
+                                       static_cast<const int*>(params),
+                                       static_cast<int*>(sync), mb_h, mb_w);
+  *n_launched = 1;
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int intra_chroma(void* cb, void* cr, const void* rcb, const void* rcr,

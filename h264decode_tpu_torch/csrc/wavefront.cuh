@@ -1,0 +1,86 @@
+// Row wavefront over macroblocks in one persistent launch, for Hopper.
+//
+// A frame whose MB (x, y) depends on MBs of row y-1 up to column x+1 (intra
+// prediction's top-right neighbour; deblocking's rewrite of the row above,
+// after the right neighbour's left-edge filter) runs as one launch of mb_h
+// blocks, one block per MB row, walking its row left to right:
+//
+//   row = take_row(sync)                       // ticket, not blockIdx
+//   for x in 0..mb_w-1:
+//     wait_row(sync, row, min(x + 2, mb_w))     // row-1 has finished MB x+1
+//     ... the MB ...
+//     publish_row(sync, row, x + 1)            // MBs 0..x of this row done
+//
+// sync is int32[mb_h + 1], zeroed on the stream before the launch: sync[0]
+// is the ticket counter, sync[1 + y] the number of MBs row y has finished.
+// Rows are handed out in the order blocks start, so a block only ever waits
+// on a row that a block already running holds: no deadlock for any mb_h,
+// whether or not all blocks fit on the card at once (4K has 135 MB rows,
+// the H100 132 SMs).
+//
+// Ordering: the block's writes, __syncthreads(), then thread 0 releases the
+// progress count (fence.acq_rel.gpu + relaxed store, as CUTLASS's
+// cutlass/barrier.h does); the waiting block's thread 0 polls with a
+// device-scope acquire load, then __syncthreads(). Planes that blocks of the
+// launch write are read with plain (or L2-only, __ldcg) loads after that
+// acquire, never through the read-only path.
+
+#pragma once
+
+namespace wavefront {
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("fence.acq_rel.gpu;\n\tst.relaxed.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// The MB row this block walks: the next ticket (uniform over the block).
+__device__ __forceinline__ int take_row(int* sync) {
+  __shared__ int row;
+  if (threadIdx.x == 0) row = atomicAdd(sync, 1);
+  __syncthreads();
+  return row;
+}
+
+// A single wait this long (5 s of the global timer, whatever the SM clock)
+// means a broken hand-off: trap, so that the launch fails with an error
+// instead of spinning forever. A trap is a sticky error: the process's CUDA
+// context is unusable afterwards. A healthy wait lasts microseconds; only a
+// card time-sliced with other contexts for seconds, or a debugger holding
+// the kernel, could reach the limit without a broken hand-off.
+constexpr unsigned long long kWaitLimitNs = 5000000000ULL;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Block until row-1 has finished `need` MBs (row 0 waits for nothing).
+__device__ __forceinline__ void wait_row(const int* sync, int row, int need) {
+  if (threadIdx.x == 0 && row > 0) {
+    const int* p = sync + row;  // progress of row - 1
+    const unsigned long long t0 = global_ns();
+    // a short, fixed back-off: the wait is on the chain's critical path, and
+    // at most mb_h threads poll
+    while (ld_acquire(p) < need) {
+      __nanosleep(32);
+      if (global_ns() - t0 > kWaitLimitNs) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// After every thread of the block has written the MB: row has done `done` MBs.
+__device__ __forceinline__ void publish_row(int* sync, int row, int done) {
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(sync + 1 + row, done);
+}
+
+}  // namespace wavefront

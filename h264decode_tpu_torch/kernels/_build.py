@@ -3,8 +3,9 @@
 Each source compiles with nvcc into its own shared library with a plain C
 interface, loaded with ctypes: no PyTorch headers are included, so a build
 takes seconds. Libraries go to h264decode_tpu_torch/_build/ under a name that
-carries a hash of the source and flags; nothing is built when this module is
-imported, only at the first launch (or by `build_all`).
+carries a hash of the flags, the source and the shared csrc/*.cuh headers;
+nothing is built when this module is imported, only at the first launch (or
+by `build_all`).
 
 The C entry points take every pointer (and the CUDA stream) as `void *`; the
 Python wrappers declare them with ctypes.c_void_p and pass
@@ -34,7 +35,8 @@ NVCC_FLAGS = [
 #: its kernel (one ctypes call = one C entry call per frame), and nowhere else
 launches: Counter = Counter()
 #: device kernels by wrapper name: each wrapper adds the number of <<<>>>
-#: launches its C entry reports having issued (one per non-empty diagonal)
+#: launches its C entry reports having issued (1 for a persistent row
+#: wavefront, one per non-empty 2:1 anti-diagonal for the per-diagonal ones)
 diag_launches: Counter = Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -55,9 +57,14 @@ def sources() -> list[str]:
 
 
 def lib_path(name: str) -> str:
+    """Where csrc/<name>.cu builds to: the name carries a hash of the flags,
+    the source and every csrc/*.cuh header (any of which it may include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        h.update(f.encode())
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 

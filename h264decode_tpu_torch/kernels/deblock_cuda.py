@@ -29,7 +29,7 @@ def _load():
     if _lib is None:
         lib = _build.load("deblock")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.deblock_luma.argtypes = [vp] * 8 + [ci, ci, vp, vp]
+        lib.deblock_luma.argtypes = [vp] * 9 + [ci, ci, vp, vp]
         lib.deblock_luma.restype = ci
         lib.deblock_chroma.argtypes = [vp] * 9 + [ci, ci, vp, vp]
         lib.deblock_chroma.restype = ci
@@ -45,14 +45,24 @@ def _tables(dev: torch.device) -> torch.Tensor:
 
 
 def deblock_luma(y: torch.Tensor, prep: dict, mb_h: int, mb_w: int) -> None:
-    """Filter luma plane y [H, W] uint8 in place."""
+    """Filter luma plane y [H, W] uint8 in place (one launch: a persistent
+    row wavefront; its sample rows are read and written 16 bytes at a time,
+    so y must start on a 16-byte boundary). A hand-off between rows that
+    stalls for seconds traps in the kernel (csrc/wavefront.cuh); a trap is a
+    sticky CUDA error, so every later CUDA call of the process fails."""
     _build.check_tensor(y, (16 * mb_h, 16 * mb_w), torch.uint8, "y")
+    if y.data_ptr() % 16:
+        raise ValueError("y: the luma deblock kernel needs a 16-byte-aligned plane")
     names = ("bs_v", "bs_h", "ia_v", "ib_v", "ia_h", "ib_h")
     for n in names:
         _build.check_tensor(prep[n], (4 * mb_h, 4 * mb_w), torch.int32, n)
+    # ticket counter + one progress count per MB row, per call so that
+    # concurrent calls never share it; the C entry zeroes it on the stream
+    sync = torch.empty(mb_h + 1, dtype=torch.int32, device=y.device)
     _build.launch("deblock_luma", _load().deblock_luma, y.data_ptr(),
                   *(prep[n].data_ptr() for n in names), _tables(y.device).data_ptr(),
-                  mb_h, mb_w, torch.cuda.current_stream(y.device).cuda_stream)
+                  sync.data_ptr(), mb_h, mb_w,
+                  torch.cuda.current_stream(y.device).cuda_stream)
 
 
 def deblock_chroma(cb: torch.Tensor, cr: torch.Tensor, prep: dict, mb_h: int,

@@ -25,7 +25,7 @@ def _load():
     if _lib is None:
         lib = _build.load("intra")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.intra_luma.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        lib.intra_luma.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
         lib.intra_luma.restype = ci
         lib.intra_chroma.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp]
         lib.intra_chroma.restype = ci
@@ -49,13 +49,19 @@ def _check(t: torch.Tensor, shape, name: str):
 
 def intra_luma(y: torch.Tensor, ry: torch.Tensor, params: torch.Tensor,
                mb_h: int, mb_w: int) -> None:
-    """Reconstruct the intra MBs of luma plane y [H, W] int32 in place."""
+    """Reconstruct the intra MBs of luma plane y [H, W] int32 in place (one
+    launch: a persistent row wavefront, csrc/wavefront.cuh). A hand-off
+    between rows that stalls for seconds traps in the kernel; a trap is a
+    sticky CUDA error, so every later CUDA call of the process fails."""
     H, W = 16 * mb_h, 16 * mb_w
     _check(y, (H, W), "y")
     _check(ry, (H, W), "resid_y")
     _check(params, (mb_h * mb_w, NPARAM), "params")
+    # ticket counter + one progress count per MB row, per call so that
+    # concurrent calls never share it; the C entry zeroes it on the stream
+    sync = torch.empty(mb_h + 1, dtype=torch.int32, device=y.device)
     _build.launch("intra_luma", _load().intra_luma, y.data_ptr(), ry.data_ptr(),
-                  params.data_ptr(), mb_h, mb_w,
+                  params.data_ptr(), sync.data_ptr(), mb_h, mb_w,
                   torch.cuda.current_stream(y.device).cuda_stream)
 
 

@@ -515,7 +515,10 @@ class GpuDecoder(Decoder):
     where the kernel wrappers run their plain torch versions. Pictures are
     reconstructed on one worker thread, RECON_DEPTH in flight. Call close()
     (or use `with`) to stop the worker threads; a closed decoder decodes no
-    more."""
+    more. The luma intra and deblock kernels trap when a hand-off between
+    MB rows stalls for seconds (csrc/wavefront.cuh); a trap is a sticky
+    CUDA error that leaves the process's CUDA context unusable, so this
+    decoder and every other CUDA user of the process fail from then on."""
 
     def __init__(self, apply_deblock: bool = True, device="cuda",
                  metrics: DecodeMetrics | None = None):

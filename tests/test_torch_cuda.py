@@ -68,24 +68,35 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("seed,mb_h,mb_w", [(31, 4, 4), (33, 9, 11)])
-def test_intra_kernels_match_plain(cuda, seed, mb_h, mb_w):
-    args = [torch.as_tensor(a, device=cuda) for a in _intra_inputs(seed, mb_h, mb_w)]
-    plain = t_intra.intra_wavefront(*args, mb_h, mb_w)
-    before = dict(_build.launches)
-    diag_before = dict(_build.diag_launches)
-    out = intra_cuda.intra_frame(*args, mb_h, mb_w)
-    torch.cuda.synchronize()
-    for a, b in zip(plain, out):
-        assert torch.equal(a, b)
-    for k in ("intra_luma", "intra_chroma"):
-        assert _build.launches[k] == before.get(k, 0) + 1
-        # one kernel per 2:1 anti-diagonal, as the C entry reports it
-        assert _build.diag_launches[k] == diag_before.get(k, 0) + mb_w + 2 * (mb_h - 1)
+# (mb_h, mb_w): small frames, one MB, a single row, a single column, and more
+# MB rows (140) than the H100 has SMs (132)
+SHAPES = [(4, 4), (9, 11), (1, 1), (1, 7), (7, 1), (140, 3)]
 
 
-@pytest.mark.parametrize("seed,mb_h,mb_w", [(41, 4, 4), (43, 9, 11)])
-def test_deblock_kernels_match_plain(cuda, seed, mb_h, mb_w):
+def _diagonals(mb_h, mb_w):
+    """Non-empty 2:1 anti-diagonals d = mbx + 2*mby: the launches of a
+    per-diagonal kernel (mb_w + 2*(mb_h - 1) unless mb_w == 1)."""
+    return sum(1 for d in range(mb_w + 2 * (mb_h - 1))
+               if any(0 <= d - 2 * r < mb_w for r in range(mb_h)))
+
+
+def _launch_counts(names):
+    return {k: (_build.launches[k], _build.diag_launches[k]) for k in names}
+
+
+def _assert_launched(before, mb_h, mb_w):
+    for k, (calls, kernels) in before.items():
+        assert _build.launches[k] == calls + 1
+        # the luma kernels are one persistent launch; chroma one per diagonal
+        per_call = 1 if k.endswith("_luma") else _diagonals(mb_h, mb_w)
+        assert _build.diag_launches[k] == kernels + per_call
+
+
+def _intra_args(cuda, seed, mb_h, mb_w):
+    return [torch.as_tensor(a, device=cuda) for a in _intra_inputs(seed, mb_h, mb_w)]
+
+
+def _deblock_args(cuda, seed, mb_h, mb_w):
     from h264decode_tpu_torch.kernels.deblock_prep_dev import deblock_prep_device
 
     p = _prep_inputs(seed, mb_h, mb_w)
@@ -99,14 +110,45 @@ def test_deblock_kernels_match_plain(cuda, seed, mb_h, mb_w):
           .astype(np.uint8))
     cb, cr = (T(np.clip(128 + rng.integers(-10, 11, (8 * mb_h, 8 * mb_w)), 0, 255)
                 .astype(np.uint8)) for _ in range(2))
+    return y, cb, cr, prep
+
+
+@pytest.mark.parametrize("mb_h,mb_w", SHAPES)
+def test_intra_kernels_match_plain(cuda, mb_h, mb_w):
+    args = _intra_args(cuda, 31 + mb_h + mb_w, mb_h, mb_w)
+    plain = t_intra.intra_wavefront(*args, mb_h, mb_w)
+    before = _launch_counts(("intra_luma", "intra_chroma"))
+    out = intra_cuda.intra_frame(*args, mb_h, mb_w)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, out):
+        assert torch.equal(a, b)
+    _assert_launched(before, mb_h, mb_w)
+
+
+@pytest.mark.parametrize("mb_h,mb_w", SHAPES)
+def test_deblock_kernels_match_plain(cuda, mb_h, mb_w):
+    y, cb, cr, prep = _deblock_args(cuda, 41 + mb_h + mb_w, mb_h, mb_w)
     plain = t_db.deblock_frame(y, cb, cr, prep, mb_h, mb_w)
-    diag_before = dict(_build.diag_launches)
+    before = _launch_counts(("deblock_luma", "deblock_chroma"))
     out = deblock_cuda.deblock_frame(y, cb, cr, prep, mb_h, mb_w)
     torch.cuda.synchronize()
     for a, b in zip(plain, out):
         assert torch.equal(a, b)
-    for k in ("deblock_luma", "deblock_chroma"):
-        assert _build.diag_launches[k] == diag_before.get(k, 0) + mb_w + 2 * (mb_h - 1)
+    _assert_launched(before, mb_h, mb_w)
+
+
+@pytest.mark.parametrize("mb_h,mb_w", [(9, 11), (140, 3)])
+def test_kernels_repeat_identically(cuda, mb_h, mb_w):
+    """A race shows as outputs that differ between runs: run every kernel 10
+    times on one input and require the same output each time."""
+    args = _intra_args(cuda, 51, mb_h, mb_w)
+    y, cb, cr, prep = _deblock_args(cuda, 52, mb_h, mb_w)
+    runs = [(intra_cuda.intra_frame(*args, mb_h, mb_w),
+             deblock_cuda.deblock_frame(y, cb, cr, prep, mb_h, mb_w)) for _ in range(10)]
+    torch.cuda.synchronize()
+    for intra_out, db_out in runs[1:]:
+        for a, b in zip(runs[0][0] + runs[0][1], intra_out + db_out):
+            assert torch.equal(a, b)
 
 
 def test_wrappers_refuse_bad_tensors(cuda):
@@ -115,3 +157,7 @@ def test_wrappers_refuse_bad_tensors(cuda):
         intra_cuda.intra_luma(y, y, y, 4, 4)
     with pytest.raises(ValueError, match="uint8"):
         deblock_cuda.deblock_luma(y, {}, 4, 4)
+    # the luma deblock kernel moves sample rows 16 bytes at a time
+    off = torch.zeros(64 * 64 + 1, dtype=torch.uint8, device=cuda)[1:].view(64, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        deblock_cuda.deblock_luma(off, {}, 4, 4)

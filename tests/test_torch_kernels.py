@@ -205,3 +205,23 @@ def test_deblock_plain_matches_jax(seed, mb_h, mb_w):
     wo = deblock_cuda.deblock_frame(T(y), T(cb), T(cr), tp, mb_h, mb_w)
     for a, b in zip(to, wo):
         assert torch.equal(a, b)
+
+
+def test_build_name_covers_headers(tmp_path, monkeypatch):
+    """A kernel library's name hashes its source and every csrc/*.cuh, so an
+    edit to a shared header never loads a stale build (no nvcc needed)."""
+    from h264decode_tpu_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include "wavefront.cuh"\n')
+    (tmp_path / "wavefront.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = _build.lib_path("k")
+    assert _build.lib_path("k") == first
+    assert _build.sources() == ["k"]
+    (tmp_path / "wavefront.cuh").write_text("// v2\n")
+    second = _build.lib_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build.lib_path("k") != second
+    (tmp_path / "k.cu").write_text('#include "wavefront.cuh"\n// edit\n')
+    assert _build.lib_path("k") not in (first, second)

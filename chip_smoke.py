@@ -21,8 +21,8 @@ raises on failure, and the script then exits non-zero):
    printed beside it). Plain versions: events around the call.
 3. The main path: the committed 1080p Main CABAC stream through GpuDecoder
    (launch counters set to 0 just before, read just after; every kernel
-   must have launched, the persistent luma kernels exactly one device
-   kernel per call, and the native entropy engine must have decoded),
+   must have launched, each exactly one device kernel (a persistent row
+   wavefront) per call, and the native entropy engine must have decoded),
    and through `python -m h264decode_tpu_torch decode`. Every frame's
    per-plane MD5 must equal libavcodec's committed MD5s. Prints frames/s
    from the median of three decodes (timing fence:
@@ -56,7 +56,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 table entry)
 MB_H, MB_W = 68, 120  # 1920x1088 coded
 REPLAYS = 20  # graph replays per kernel in the race check
-ROW_KERNELS = ("intra_luma", "deblock_luma")  # one persistent launch per call
+# one persistent launch per call
+ROW_KERNELS = ("intra_luma", "intra_chroma", "deblock_luma", "deblock_chroma")
 
 
 def log(msg: str):
@@ -107,10 +108,9 @@ def capture(fn, reset):
 
 def graph_ms(g, reset, runs: int = 5) -> float:
     """Median device time in ms of one replay of graph g: the launches of
-    one call (one persistent kernel for the luma kernels, 254 diagonals for
-    the chroma kernels at 1080p) run back to back, so the host's enqueue
-    speed does not enter. reset() (not timed) restores the tensors in place
-    before each replay."""
+    one call (the scratch memset and one persistent kernel) run back to
+    back, so the host's enqueue speed does not enter. reset() (not timed)
+    restores the tensors in place before each replay."""
     return cuda_ms(g.replay, reset, runs=runs)
 
 
@@ -413,11 +413,11 @@ def main_path(dev, name: str, want: dict, kernel_names) -> dict:
     decode_timed(dev, bs)  # first-call costs (allocator, tables)
     metrics = DecodeMetrics()
     _build.launches.clear()
-    _build.diag_launches.clear()
+    _build.device_kernels.clear()
     native.calls.clear()
     frames, dt = decode_timed(dev, bs, metrics)
     launches = {k: _build.launches[k] for k in kernel_names}
-    diag = {k: _build.diag_launches[k] for k in kernel_names}
+    kernels = {k: _build.device_kernels[k] for k in kernel_names}
     native_slices = native.calls["decode_slice"]
     got = [md5s(fr.planes()) for fr in frames]
     if got != want["frames"]:
@@ -435,7 +435,7 @@ def main_path(dev, name: str, want: dict, kernel_names) -> dict:
     fps = len(frames) / wall
     log(f"{name}: {len(frames)} frames bit-exact vs libavcodec MD5s; walls {walls} s, "
         f"median -> {fps} frames/s (fence: torch.cuda.synchronize); wrapper calls "
-        f"{launches}; device kernels they launched {diag}; native entropy slices "
+        f"{launches}; device kernels they launched {kernels}; native entropy slices "
         f"{native_slices}")
     log(f"{name}: stage timers {json.dumps(metrics.summary())}")
     log(f"{name}: trace {json.dumps(trace(dev, bs, name, wall))}")
@@ -453,7 +453,7 @@ def main_path(dev, name: str, want: dict, kernel_names) -> dict:
         raise RuntimeError(f"CLI decode of {name}: frames differ from libavcodec")
     os.remove(y4m)
     log(f"{name}: CLI decode bit-exact ({res.stdout.splitlines()[0]})")
-    return dict(launches=launches, diag=diag, fps=fps, frames=len(frames))
+    return dict(launches=launches, kernels=kernels, fps=fps, frames=len(frames))
 
 
 def main() -> int:
@@ -492,7 +492,7 @@ def main() -> int:
     main_path(dev, "smoke_cif_high.h264", want["smoke_cif_high.h264"], names)
     for k in names:
         kernels[k]["launches"] = mp["launches"][k]
-        kernels[k]["inner_launches_per_call"] = mp["diag"][k] / mp["launches"][k]
+        kernels[k]["inner_launches_per_call"] = mp["kernels"][k] / mp["launches"][k]
     many = {k: kernels[k]["inner_launches_per_call"] for k in ROW_KERNELS
             if kernels[k]["inner_launches_per_call"] != 1.0}
     if many:

@@ -33,13 +33,21 @@
 // writes (the filter would be the identity), the counterpart of the Pallas
 // kernels' skip of blocks whose bS are all zero; it only publishes.
 //
-// Chroma (deblock_chroma_diag) still loops over the 2:1 anti-diagonals
-// d = mbx + 2*mby on the host, one launch of one block of 16 threads (8
-// lines per component, luma edges 0 and 2, tC = tC0 + 1, bS = 4 changes
-// p0/q0 only) per MB per diagonal.
+// Chroma design (deblock_chroma_rows): the same row wavefront and hand-off
+// (a 4:2:0 chroma MB is 8x8 per component and MB (x, y) still waits for
+// row y-1 to finish MB x+1, so its chain is the same 254 steps), one block
+// of 16 threads per MB row: 8 lines of Cb and 8 of Cr. Only luma edges 0
+// and 2 carry chroma edges; tC = tC0 + 1, and bS = 4 changes p0/q0 only.
+// The block keeps each component's MB in a shared tile with the left MB's
+// last 2 columns carried along the row; only the 2 rows above come from
+// device memory, after the wait. The next MB's 8-byte lines and its chroma
+// edge parameters (8 bs_v and 8 bs_h cells, indexA / indexB of both
+// components) are loaded one MB ahead. Vertical edges run before the wait;
+// the wait is skipped when the MB's chroma top edge has bS = 0, and an MB
+// with bS = 0 on all its chroma edges neither waits nor writes.
 //
 // The C entry points take the caller's stream and report through
-// *n_launched how many kernels they launched (1 for luma).
+// *n_launched how many kernels they launched (1 each).
 //
 // Data layout: planes y [H, W], cb/cr [Hc, Wc] uint8, filtered in place.
 // Edge parameters per 4x4 cell edge, int32 [H4, W4] (chroma thresholds
@@ -47,8 +55,8 @@
 // luma indexA/indexB ia_*/ib_*, chroma ca_*/cb_*. tabs = alpha[52],
 // beta[52], tc0[52][3] (Table 8-16/8-17), int32. bS must be 0 on the
 // picture's boundary edges (the prep guarantees it); the kernels never
-// read outside the picture. The luma entry also takes sync, int32[mb_h + 1]
-// of scratch, which it zeroes on the stream before the launch.
+// read outside the picture. Each entry also takes sync, int32[mb_h + 1] of
+// scratch, which it zeroes on the stream before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,13 +122,6 @@ __device__ void filter_chroma_line(uint8_t* s, int step, int bs, int ia, int ib,
     s[-step] = (2 * p1 + p0 + q1 + 2) >> 2;
     s[0] = (2 * q1 + q0 + p1 + 2) >> 2;
   }
-}
-
-// true when any edge of MB (mbx, mby) has bS > 0 (uniform over the block)
-__device__ bool mb_active(const int* bs_v, const int* bs_h, int W4, int mbx, int mby) {
-  const int t = threadIdx.x;  // 16 threads: one 4x4 cell each
-  const int cell = (4 * mby + (t >> 2)) * W4 + 4 * mbx + (t & 3);
-  return __syncthreads_or(bs_v[cell] > 0 || bs_h[cell] > 0);
 }
 
 // 16 bytes of a 4-byte-aligned shared row, as 4 words
@@ -218,43 +219,114 @@ __global__ void __launch_bounds__(16) deblock_luma_rows(
   }
 }
 
-__global__ void __launch_bounds__(16) deblock_chroma_diag(
-    uint8_t* __restrict__ cb, uint8_t* __restrict__ cr, const int* __restrict__ bs_v,
-    const int* __restrict__ bs_h, const int* __restrict__ ca_v, const int* __restrict__ cb_v,
+// Chroma: one block of 16 threads per MB row; thread t filters line t & 7
+// of component t >> 3 (0 Cb, 1 Cr) across the vertical edges and column
+// t & 7 across the horizontal ones. tile[c][r][k] holds picture sample
+// (8*row - 2 + r, 8*mbx - 8 + k) of component c: rows 0..1 the rows above
+// the MB (columns 8..15 only), columns 6..7 the left MB's last 2 columns
+// (rows 2..9 only), rows 2..9 / columns 8..15 the MB, 8-byte aligned. Only
+// luma edges 0 and 2 carry chroma edges (4:2:0): thread t's parameters are
+// the cells of its line (bs_v at cell row (t & 7) / 2, cell columns 0 and 2)
+// and of its column (bs_h at cell rows 0 and 2, cell column (t & 7) / 2),
+// with its component's indexA / indexB. bS on luma edges 1 and 3 alone gives
+// the MB no chroma work.
+__global__ void __launch_bounds__(16) deblock_chroma_rows(
+    uint8_t* cb, uint8_t* cr, const int* __restrict__ bs_v, const int* __restrict__ bs_h,
+    const int* __restrict__ ca_v, const int* __restrict__ cb_v,
     const int* __restrict__ ca_h, const int* __restrict__ cb_h,
-    const int* __restrict__ tabs, int mb_h, int mb_w, int d, int mby0) {
-  const int mby = mby0 + blockIdx.x, mbx = d - 2 * mby;
-  const int W4 = 4 * mb_w, H4 = 4 * mb_h, Wc = 8 * mb_w;
-  if (!mb_active(bs_v, bs_h, W4, mbx, mby)) return;
-  const int comp = threadIdx.x >> 3, t = threadIdx.x & 7;
-  uint8_t* pl = comp ? cr : cb;
-  const int coff = comp * H4 * W4;  // component plane of the [2, H4, W4] grids
-  // vertical chroma edges at luma edges 0 and 2: chroma line t uses luma cell row t/2
-  for (int ei = 0; ei < 2; ++ei) {
-    const int x = 8 * mbx + 4 * ei;
-    const int cell = (4 * mby + (t >> 1)) * W4 + 4 * mbx + 2 * ei;
-    const int bs = bs_v[cell];
-    if (bs > 0 && x > 0)
-      filter_chroma_line(pl + (8 * mby + t) * Wc + x, 1, bs, ca_v[coff + cell],
-                         cb_v[coff + cell], tabs);
-  }
-  __syncthreads();
-  for (int ei = 0; ei < 2; ++ei) {
-    const int r = 8 * mby + 4 * ei;
-    const int cell = (4 * mby + 2 * ei) * W4 + 4 * mbx + (t >> 1);
-    const int bs = bs_h[cell];
-    if (bs > 0 && r > 0)
-      filter_chroma_line(pl + r * Wc + 8 * mbx + t, Wc, bs, ca_h[coff + cell],
-                         cb_h[coff + cell], tabs);
+    const int* __restrict__ tabs, int* sync, int mb_h, int mb_w) {
+  __shared__ __align__(16) uint8_t tile[2][10][16];
+  const int row = wavefront::take_row(sync);
+  const int Wc = 8 * mb_w, W4 = 4 * mb_w, H4 = 4 * mb_h;
+  const int c = threadIdx.x >> 3, t = threadIdx.x & 7;
+  uint8_t (*tl)[16] = tile[c];
+  uint8_t* pl = c ? cr : cb;
+  const int coff = c * H4 * W4;  // component plane of the [2, H4, W4] grids
+  const int vcell = (4 * row + (t >> 1)) * W4;   // + 4*mbx + 2*ei: line t's cells
+  const int hcell = 4 * row * W4 + (t >> 1);     // + 2*ei*W4 + 4*mbx: column t's
+  uint8_t* line = pl + (8 * row + t) * Wc;       // thread t's MB line
+  // MB 0, one MB ahead: line t of its samples, the bS / indexA / indexB of
+  // its line's two vertical and its column's two horizontal chroma edges
+  uint2 nline = __ldcg(reinterpret_cast<const uint2*>(line));
+  int nv[3][2], nh[3][2];
+  auto fetch = [&](int mbx) {
+#pragma unroll
+    for (int ei = 0; ei < 2; ++ei) {
+      const int v = vcell + 4 * mbx + 2 * ei, h = hcell + 2 * ei * W4 + 4 * mbx;
+      nv[0][ei] = __ldg(bs_v + v);
+      nv[1][ei] = __ldg(ca_v + coff + v);
+      nv[2][ei] = __ldg(cb_v + coff + v);
+      nh[0][ei] = __ldg(bs_h + h);
+      nh[1][ei] = __ldg(ca_h + coff + h);
+      nh[2][ei] = __ldg(cb_h + coff + h);
+    }
+  };
+  fetch(0);
+  for (int mbx = 0; mbx < mb_w; ++mbx) {
+    *reinterpret_cast<uint2*>(&tl[2 + t][8]) = nline;
+    int pv[3][2], ph[3][2];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int ei = 0; ei < 2; ++ei) { pv[k][ei] = nv[k][ei]; ph[k][ei] = nh[k][ei]; }
+    const bool active = __syncthreads_or((pv[0][0] | pv[0][1] | ph[0][0] | ph[0][1]) > 0);
+    if (mbx + 1 < mb_w) {
+      nline = __ldcg(reinterpret_cast<const uint2*>(line + 8 * (mbx + 1)));
+      fetch(mbx + 1);
+    }
+    if (active) {
+      // vertical edges, left to right: thread t owns line t of its
+      // component. They touch this row's lines only, so they run before
+      // the wait.
+#pragma unroll
+      for (int ei = 0; ei < 2; ++ei)
+        if (pv[0][ei] > 0 && (mbx > 0 || ei > 0))
+          filter_chroma_line(&tl[2 + t][8 + 4 * ei], 1, pv[0][ei], pv[1][ei], pv[2][ei], tabs);
+      // Why the vertical edges may run before the wait, and an MB whose
+      // chroma top edge has bS = 0 may skip it. In chroma samples, MB
+      // (x, row) reads lines 8*row-2 .. 8*row+7 of columns 8x-2 .. 8x+7 and
+      // writes lines 8*row-1 .. 8*row+7 of columns 8x-1 .. 8x+7; only its
+      // top edge reads or writes lines of row-1. No block of row-1 ever
+      // reads or writes a line of this row. Row+1's MB x' writes line
+      // 8*row+7 of columns 8x' .. 8x'+7 (and reads lines 8*row+6, +7 there)
+      // only after this row has published x'+2 MBs, so nothing but this
+      // block has written columns 8x-2 .. 8x+7 of this row's lines when it
+      // loads them (one MB ahead) or filters them. Row-1's lines under MB x
+      // are final only once row-1 has finished MB x+1, whose left-edge
+      // filter rewrites column 8x+7 of lines 8*row-8 .. 8*row-1: hence
+      // need = x+2, before the top edge alone.
+      const bool top = __syncthreads_or(row > 0 && ph[0][0] > 0);
+      if (top) {
+        wavefront::wait_row(sync, row, min(mbx + 2, mb_w));
+        if (t < 2)
+          *reinterpret_cast<uint2*>(&tl[t][8]) = __ldcg(
+              reinterpret_cast<const uint2*>(pl + (8 * row - 2 + t) * Wc + 8 * mbx));
+      }
+      __syncthreads();
+      // horizontal edges, top to bottom: thread t owns column t
+#pragma unroll
+      for (int ei = 0; ei < 2; ++ei)
+        if (ph[0][ei] > 0 && (row > 0 || ei > 0))
+          filter_chroma_line(&tl[2 + 4 * ei][8 + t], 16, ph[0][ei], ph[1][ei], ph[2][ei], tabs);
+      __syncthreads();
+      // Back to the plane, nothing deferred: line t with the left MB's last
+      // column (the left edge's p0), and the line above (the top edge's p0).
+      // So when this row publishes n, MBs 0..n-1 are in the plane, each but
+      // MB n-1 with the column its right neighbour's left edge rewrote;
+      // need = x+2 above waits for exactly that.
+      uint8_t* g = line + 8 * mbx;
+      if (mbx > 0) g[-1] = tl[2 + t][7];
+      *reinterpret_cast<uint2*>(g) = *reinterpret_cast<const uint2*>(&tl[2 + t][8]);
+      if (top && t == 0)
+        *reinterpret_cast<uint2*>(pl + (8 * row - 1) * Wc + 8 * mbx) =
+            *reinterpret_cast<const uint2*>(&tl[1][8]);
+    }
+    // the MB's last 2 columns are the next MB's left strip (own line only)
+    *reinterpret_cast<uint16_t*>(&tl[2 + t][6]) =
+        *reinterpret_cast<const uint16_t*>(&tl[2 + t][14]);
+    wavefront::publish_row(sync, row, mbx + 1);
   }
 }
-
-inline int diag_lo(int d, int mb_w) {
-  int lo = d - (mb_w - 1);
-  return lo > 0 ? (lo + 1) / 2 : 0;
-}
-
-inline int diag_hi(int d, int mb_h) { return d / 2 < mb_h - 1 ? d / 2 : mb_h - 1; }
 
 }  // namespace
 
@@ -277,22 +349,18 @@ extern "C" int deblock_luma(void* y, const void* bs_v, const void* bs_h, const v
 
 extern "C" int deblock_chroma(void* cb, void* cr, const void* bs_v, const void* bs_h,
                               const void* ca_v, const void* cb_v, const void* ca_h,
-                              const void* cb_h, const void* tabs, int mb_h, int mb_w,
-                              void* stream, int* n_launched) {
+                              const void* cb_h, const void* tabs, void* sync, int mb_h,
+                              int mb_w, void* stream, int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
-  for (int d = 0; d < mb_w + 2 * (mb_h - 1); ++d) {  // 254 at 1080p
-    int lo = diag_lo(d, mb_w), hi = diag_hi(d, mb_h);
-    if (hi < lo) continue;
-    deblock_chroma_diag<<<hi - lo + 1, 16, 0, s>>>(
-        static_cast<uint8_t*>(cb), static_cast<uint8_t*>(cr),
-        static_cast<const int*>(bs_v), static_cast<const int*>(bs_h),
-        static_cast<const int*>(ca_v), static_cast<const int*>(cb_v),
-        static_cast<const int*>(ca_h), static_cast<const int*>(cb_h),
-        static_cast<const int*>(tabs), mb_h, mb_w, d, lo);
-    ++*n_launched;
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
+  cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (mb_h + 1), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  deblock_chroma_rows<<<mb_h, 16, 0, s>>>(
+      static_cast<uint8_t*>(cb), static_cast<uint8_t*>(cr), static_cast<const int*>(bs_v),
+      static_cast<const int*>(bs_h), static_cast<const int*>(ca_v),
+      static_cast<const int*>(cb_v), static_cast<const int*>(ca_h),
+      static_cast<const int*>(cb_h), static_cast<const int*>(tabs), static_cast<int*>(sync),
+      mb_h, mb_w);
+  *n_launched = 1;
+  return static_cast<int>(cudaGetLastError());
 }

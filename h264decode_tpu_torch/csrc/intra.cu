@@ -6,14 +6,16 @@
 // called from intra_frame_pallas (intra_pallas.py:645). The plain version
 // it is held against is h264decode_tpu_torch/kernels/intra.py.
 //
-// What bounds it on this card: the spec makes each macroblock depend on
-// its reconstructed left, top, top-right and top-left neighbours, so the
-// frame is a serial chain of mb_w + 2*(mb_h - 1) MB steps (254 at 1080p):
-// MB (x, y) can start once row y-1 has finished MB x+1. The bytes are small
-// (one read of the planes, residual and per-MB parameters, one write of the
-// planes: a few microseconds at 3.35 TB/s), so the time of one step of the
-// chain (the hand-off between rows plus one MB's own latency) times 254
-// bounds it, not bandwidth.
+// What bounds it on this card: the spec makes each luma macroblock depend
+// on its reconstructed left, top, top-right and top-left neighbours, so
+// luma is a serial chain of mb_w + 2*(mb_h - 1) MB steps (254 at 1080p):
+// MB (x, y) can start once row y-1 has finished MB x+1. Chroma has no
+// top-right neighbour (8.3.4): its chain is mb_w + mb_h - 1 steps (187 at
+// 1080p), MB (x, y) starting once row y-1 has finished MB x. The bytes are
+// small (one read of the planes, residual and per-MB parameters, one write
+// of the planes: a few microseconds at 3.35 TB/s), so the time of one step
+// of the chain (the hand-off between rows plus one MB's own latency) times
+// the chain's length bounds it, not bandwidth.
 //
 // Luma design (intra_luma_rows): one persistent launch per call, one block
 // of 256 threads per MB row, rows handed on through progress counters in
@@ -27,19 +29,25 @@
 // (its pixels keep their inter/PCM values), the counterpart of the Pallas
 // kernels' skip of blocks without intra MBs.
 //
-// Chroma (intra_chroma_diag) still loops over the 2:1 anti-diagonals
-// d = mbx + 2*mby on the host, one launch of one block per MB per diagonal.
+// Chroma design (intra_chroma_rows): the same row wavefront, one block of
+// 128 threads per MB row (64 per component, one per sample), waiting for
+// row y-1 to finish MB x only. The block carries the reconstructed right
+// column of an intra MB in shared memory as the next MB's left column (a
+// non-intra left MB's column is read from the plane, which no block
+// writes); only the corner and the 8 samples above come from device memory
+// after the wait. The next MB's residual and parameters are loaded before
+// the wait; a non-intra MB only publishes.
 //
 // The C entry points take the caller's stream and report through
-// *n_launched how many kernels they launched (1 for luma).
+// *n_launched how many kernels they launched (1 each).
 //
 // Data layout (all int32, contiguous): planes y [H, W], cb/cr [Hc, Wc],
 // updated in place; residual planes of the same shapes; params [nMB, 20]
 // = kind, i16mode, cmode, avail bits (1 left, 2 top, 4 top-right,
 // 8 top-left), modes4[16] (z-order; 8x8 modes in the first 4). Samples
-// outside the picture read as 0, as in the plain version. The luma entry
-// also takes sync, int32[mb_h + 1] of scratch, which it zeroes on the
-// stream before the launch.
+// outside the picture read as 0, as in the plain version. Each entry also
+// takes sync, int32[mb_h + 1] of scratch, which it zeroes on the stream
+// before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -243,60 +251,89 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
   }
 }
 
-// Chroma: one block of 128 threads per intra macroblock (64 per component).
-__global__ void __launch_bounds__(128) intra_chroma_diag(
-    int* __restrict__ cb, int* __restrict__ cr, const int* __restrict__ rcb,
-    const int* __restrict__ rcr, const int* __restrict__ prm, int mb_h, int mb_w,
-    int d, int mby0) {
-  const int mby = mby0 + blockIdx.x, mbx = d - 2 * mby;
-  const int* p = prm + (mby * mb_w + mbx) * NPARAM;
-  if (p[0] == 0) return;  // not intra (chroma runs for every intra kind)
+// Chroma: one block of 128 threads per MB row; thread tid covers sample
+// (yy, x) = ((tid >> 3) & 7, tid & 7) of component tid >> 6 (0 Cb, 1 Cr).
+// top[c][i] holds picture sample (8*row - 1, 8*mbx - 1 + i): the corner and
+// the 8 samples above. left[mbx & 1][c] holds the 8 samples to the left
+// (double-buffered by MB parity, so the MB's right column can be stored for
+// the next MB while other threads still read this MB's left column).
+__global__ void __launch_bounds__(128) intra_chroma_rows(
+    int* cb, int* cr, const int* __restrict__ rcb, const int* __restrict__ rcr,
+    const int* __restrict__ prm, int* sync, int mb_h, int mb_w) {
+  __shared__ int top[2][9];
+  __shared__ int left[2][2][8];
+  const int row = wavefront::take_row(sync);
   const int Wc = mb_w * 8;
-  const int comp = threadIdx.x >> 6, x = threadIdx.x & 7, yy = (threadIdx.x >> 3) & 7;
-  int* pl = comp ? cr : cb;
-  const int* rs = comp ? rcr : rcb;
-  const bool avl = p[3] & AV_L, avt = p[3] & AV_T;
-  const int r0 = 8 * mby, c0 = 8 * mbx;
-  auto at = [&](int r, int c) { return (r < 0 || c < 0) ? 0 : pl[r * Wc + c]; };
-  int t[8], l[8];
-  for (int i = 0; i < 8; ++i) { t[i] = at(r0 - 1, c0 + i); l[i] = at(r0 + i, c0 - 1); }
-  const int m = at(r0 - 1, c0 - 1);
-  // every thread has read its neighbours before any thread of the block
-  // writes (writes stay inside the MB, reads outside it: no hazard)
-  const int mode = min(max(p[2], 0), 3);
-  int pred;
-  if (mode == 0) {  // DC per 4x4 quadrant (8.3.4.1-3)
-    const int qx = x >> 2, qy = yy >> 2;
-    int st = 0, sl = 0;
-    for (int i = 0; i < 4; ++i) { st += t[4 * qx + i]; sl += l[4 * qy + i]; }
-    const int both = (st + sl + 4) >> 3, ot = (st + 2) >> 2, ol = (sl + 2) >> 2;
-    if (qx == qy) pred = dc3(avl, avt, both, ot, ol);
-    else if (qx == 1) pred = avt ? ot : (avl ? ol : 128);  // top-right: prefer top
-    else pred = avl ? ol : (avt ? ot : 128);                 // bottom-left: prefer left
-  } else if (mode == 1) {
-    pred = l[yy];
-  } else if (mode == 2) {
-    pred = t[x];
-  } else {
-    int hs = 0, vs = 0;
-    for (int k = 0; k < 4; ++k) {
-      hs += (k + 1) * (t[4 + k] - (k == 3 ? m : t[2 - k]));
-      vs += (k + 1) * (l[4 + k] - (k == 3 ? m : l[2 - k]));
+  const int c = threadIdx.x >> 6, i = threadIdx.x & 63, x = i & 7, yy = i >> 3;
+  int* pl = c ? cr : cb;
+  const int* res = (c ? rcr : rcb) + (8 * row + yy) * Wc + x;
+  const int* prm_row = prm + row * mb_w * NPARAM;
+  // the next MB's residual sample and its kind / cmode / avail (no block
+  // writes them)
+  int nres = __ldg(res), nkind = __ldg(prm_row), ncm = __ldg(prm_row + 2),
+      nav = __ldg(prm_row + 3);
+  bool have_left = false;  // left[mbx & 1] holds the left MB's final column
+  for (int mbx = 0; mbx < mb_w; ++mbx) {
+    const int kind = nkind, cm = ncm, av = nav, rs = nres;
+    if (mbx + 1 < mb_w) {
+      const int* p = prm_row + (mbx + 1) * NPARAM;
+      nres = __ldg(res + 8 * (mbx + 1));
+      nkind = __ldg(p);
+      ncm = __ldg(p + 2);
+      nav = __ldg(p + 3);
     }
-    int a = 16 * (l[7] + t[7]);
-    int b = (34 * hs + 32) >> 6, c = (34 * vs + 32) >> 6;
-    pred = clip255((a + b * (x - 3) + c * (yy - 3) + 16) >> 5);
+    if (kind == 0) {  // not intra (chroma runs for every intra kind)
+      have_left = false;  // this MB's samples stay as they are in the plane
+      wavefront::publish_row(sync, row, mbx + 1);
+      continue;
+    }
+    const int r0 = 8 * row, c0 = 8 * mbx;
+    int* l = left[mbx & 1][c];
+    if (!have_left && i < 8)  // left MB not intra: its samples are final in the plane
+      l[i] = mbx > 0 ? __ldcg(pl + (r0 + i) * Wc + c0 - 1) : 0;
+    // Chroma prediction (spec 8.3.4) reads only the 8 samples to the left,
+    // the 8 above and the corner above-left, never the MB above-right: MB
+    // (x, row) depends on (x-1, row), (x, row-1) and (x-1, row-1) alone. So
+    // it waits until row-1 has finished MB x (need = x+1, not luma's x+2),
+    // and the chain is mb_w + mb_h - 1 MB steps (187 at 1080p).
+    wavefront::wait_row(sync, row, mbx + 1);
+    if (i < 9)  // samples outside the picture read as 0
+      top[c][i] = (row > 0 && c0 - 1 + i >= 0) ? __ldcg(pl + (r0 - 1) * Wc + c0 - 1 + i) : 0;
+    __syncthreads();
+    const bool avl = av & AV_L, avt = av & AV_T;
+    const int* t = &top[c][1];  // t[-1] is the corner
+    const int m = t[-1];
+    const int mode = min(max(cm, 0), 3);
+    int pred;
+    if (mode == 0) {  // DC per 4x4 quadrant (8.3.4.1-3)
+      const int qx = x >> 2, qy = yy >> 2;
+      int st = 0, sl = 0;
+      for (int k = 0; k < 4; ++k) { st += t[4 * qx + k]; sl += l[4 * qy + k]; }
+      const int both = (st + sl + 4) >> 3, ot = (st + 2) >> 2, ol = (sl + 2) >> 2;
+      if (qx == qy) pred = dc3(avl, avt, both, ot, ol);
+      else if (qx == 1) pred = avt ? ot : (avl ? ol : 128);  // top-right: prefer top
+      else pred = avl ? ol : (avt ? ot : 128);                 // bottom-left: prefer left
+    } else if (mode == 1) {
+      pred = l[yy];
+    } else if (mode == 2) {
+      pred = t[x];
+    } else {
+      int hs = 0, vs = 0;
+      for (int k = 0; k < 4; ++k) {
+        hs += (k + 1) * (t[4 + k] - (k == 3 ? m : t[2 - k]));
+        vs += (k + 1) * (l[4 + k] - (k == 3 ? m : l[2 - k]));
+      }
+      int a = 16 * (l[7] + t[7]);
+      int b = (34 * hs + 32) >> 6, cc = (34 * vs + 32) >> 6;
+      pred = clip255((a + b * (x - 3) + cc * (yy - 3) + 16) >> 5);
+    }
+    const int v = clip255(pred + rs);
+    pl[(r0 + yy) * Wc + c0 + x] = v;
+    if (x == 7) left[(mbx + 1) & 1][c][yy] = v;  // right column -> next MB's left
+    have_left = true;
+    wavefront::publish_row(sync, row, mbx + 1);
   }
-  const int o = (r0 + yy) * Wc + c0 + x;
-  pl[o] = clip255(pred + rs[o]);
 }
-
-inline int diag_lo(int d, int mb_w) {
-  int lo = d - (mb_w - 1);
-  return lo > 0 ? (lo + 1) / 2 : 0;
-}
-
-inline int diag_hi(int d, int mb_h) { return d / 2 < mb_h - 1 ? d / 2 : mb_h - 1; }
 
 }  // namespace
 
@@ -314,19 +351,16 @@ extern "C" int intra_luma(void* y, const void* res, const void* params, void* sy
 }
 
 extern "C" int intra_chroma(void* cb, void* cr, const void* rcb, const void* rcr,
-                            const void* params, int mb_h, int mb_w, void* stream,
+                            const void* params, void* sync, int mb_h, int mb_w, void* stream,
                             int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
-  for (int d = 0; d < mb_w + 2 * (mb_h - 1); ++d) {  // 254 at 1080p
-    int lo = diag_lo(d, mb_w), hi = diag_hi(d, mb_h);
-    if (hi < lo) continue;
-    intra_chroma_diag<<<hi - lo + 1, 128, 0, s>>>(
-        static_cast<int*>(cb), static_cast<int*>(cr), static_cast<const int*>(rcb),
-        static_cast<const int*>(rcr), static_cast<const int*>(params), mb_h, mb_w, d, lo);
-    ++*n_launched;
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
+  cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (mb_h + 1), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  intra_chroma_rows<<<mb_h, 128, 0, s>>>(
+      static_cast<int*>(cb), static_cast<int*>(cr), static_cast<const int*>(rcb),
+      static_cast<const int*>(rcr), static_cast<const int*>(params), static_cast<int*>(sync),
+      mb_h, mb_w);
+  *n_launched = 1;
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,20 @@
 // Row wavefront over macroblocks in one persistent launch, for Hopper.
 //
-// A frame whose MB (x, y) depends on MBs of row y-1 up to column x+1 (intra
-// prediction's top-right neighbour; deblocking's rewrite of the row above,
-// after the right neighbour's left-edge filter) runs as one launch of mb_h
-// blocks, one block per MB row, walking its row left to right:
+// A frame whose MB (x, y) depends on MBs of row y-1 up to some column runs
+// as one launch of mb_h blocks, one block per MB row, walking its row left
+// to right:
 //
 //   row = take_row(sync)                       // ticket, not blockIdx
 //   for x in 0..mb_w-1:
-//     wait_row(sync, row, min(x + 2, mb_w))     // row-1 has finished MB x+1
+//     wait_row(sync, row, need(x))             // row-1 has finished MBs 0..need-1
 //     ... the MB ...
 //     publish_row(sync, row, x + 1)            // MBs 0..x of this row done
+//
+// The caller chooses need: min(x + 2, mb_w) where MB (x, y) needs row y-1's
+// MB x+1 (intra luma's top-right neighbour; deblocking, luma and chroma,
+// whose row above is final only after the right neighbour's left-edge
+// filter), x + 1 where it needs row y-1 only up to MB x (intra chroma,
+// which has no top-right neighbour).
 //
 // sync is int32[mb_h + 1], zeroed on the stream before the launch: sync[0]
 // is the ticket counter, sync[1 + y] the number of MBs row y has finished.

@@ -36,8 +36,8 @@ NVCC_FLAGS = [
 launches: Counter = Counter()
 #: device kernels by wrapper name: each wrapper adds the number of <<<>>>
 #: launches its C entry reports having issued (1 for a persistent row
-#: wavefront, one per non-empty 2:1 anti-diagonal for the per-diagonal ones)
-diag_launches: Counter = Counter()
+#: wavefront)
+device_kernels: Counter = Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -115,12 +115,12 @@ def load(name: str) -> ctypes.CDLL:
 def launch(name: str, entry, *args) -> None:
     """Call the C entry point of wrapper `name` as entry(*args, &n), where
     it stores in n the number of device kernels it launched. Counts the call
-    in `launches` and n in `diag_launches`, then raises if the entry
+    in `launches` and n in `device_kernels`, then raises if the entry
     returned a non-zero cudaError_t."""
     n = ctypes.c_int(0)
     launches[name] += 1
     err = entry(*args, ctypes.addressof(n))
-    diag_launches[name] += n.value
+    device_kernels[name] += n.value
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

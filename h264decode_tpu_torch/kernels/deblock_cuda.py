@@ -31,7 +31,7 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.deblock_luma.argtypes = [vp] * 9 + [ci, ci, vp, vp]
         lib.deblock_luma.restype = ci
-        lib.deblock_chroma.argtypes = [vp] * 9 + [ci, ci, vp, vp]
+        lib.deblock_chroma.argtypes = [vp] * 10 + [ci, ci, vp, vp]
         lib.deblock_chroma.restype = ci
         _lib = lib
     return _lib
@@ -67,18 +67,26 @@ def deblock_luma(y: torch.Tensor, prep: dict, mb_h: int, mb_w: int) -> None:
 
 def deblock_chroma(cb: torch.Tensor, cr: torch.Tensor, prep: dict, mb_h: int,
                    mb_w: int) -> None:
-    """Filter 4:2:0 chroma planes cb/cr [Hc, Wc] uint8 in place."""
+    """Filter 4:2:0 chroma planes cb/cr [Hc, Wc] uint8 in place (one launch:
+    a persistent row wavefront; its sample rows are read and written 8
+    bytes at a time, so cb and cr must start on an 8-byte boundary). A
+    hand-off between rows that stalls for seconds traps in the kernel
+    (csrc/wavefront.cuh); a trap is a sticky CUDA error, so every later CUDA
+    call of the process fails."""
     for t, n in ((cb, "cb"), (cr, "cr")):
         _build.check_tensor(t, (8 * mb_h, 8 * mb_w), torch.uint8, n)
+        if t.data_ptr() % 8:
+            raise ValueError(f"{n}: the chroma deblock kernel needs an 8-byte-aligned plane")
     for n in ("bs_v", "bs_h"):
         _build.check_tensor(prep[n], (4 * mb_h, 4 * mb_w), torch.int32, n)
     names = ("ca_v", "cb_v", "ca_h", "cb_h")
     for n in names:
         _build.check_tensor(prep[n], (2, 4 * mb_h, 4 * mb_w), torch.int32, n)
+    sync = torch.empty(mb_h + 1, dtype=torch.int32, device=cb.device)
     _build.launch("deblock_chroma", _load().deblock_chroma, cb.data_ptr(), cr.data_ptr(),
                   prep["bs_v"].data_ptr(), prep["bs_h"].data_ptr(),
                   *(prep[n].data_ptr() for n in names), _tables(cb.device).data_ptr(),
-                  mb_h, mb_w, torch.cuda.current_stream(cb.device).cuda_stream)
+                  sync.data_ptr(), mb_h, mb_w, torch.cuda.current_stream(cb.device).cuda_stream)
 
 
 def deblock_frame(y, cb, cr, prep: dict, mb_h: int, mb_w: int):

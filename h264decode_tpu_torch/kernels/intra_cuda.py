@@ -27,7 +27,7 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.intra_luma.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
         lib.intra_luma.restype = ci
-        lib.intra_chroma.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp]
+        lib.intra_chroma.argtypes = [vp] * 6 + [ci, ci, vp, vp]
         lib.intra_chroma.restype = ci
         _lib = lib
     return _lib
@@ -67,14 +67,19 @@ def intra_luma(y: torch.Tensor, ry: torch.Tensor, params: torch.Tensor,
 
 def intra_chroma(cb: torch.Tensor, cr: torch.Tensor, rcb: torch.Tensor,
                  rcr: torch.Tensor, params: torch.Tensor, mb_h: int, mb_w: int) -> None:
-    """Reconstruct the intra MBs of chroma planes cb/cr [Hc, Wc] int32 in place."""
+    """Reconstruct the intra MBs of chroma planes cb/cr [Hc, Wc] int32 in
+    place (one launch: a persistent row wavefront, csrc/wavefront.cuh). A
+    hand-off between rows that stalls for seconds traps in the kernel; a
+    trap is a sticky CUDA error, so every later CUDA call of the process
+    fails."""
     Hc, Wc = 8 * mb_h, 8 * mb_w
     for t, n in ((cb, "cb"), (cr, "cr"), (rcb, "resid_cb"), (rcr, "resid_cr")):
         _check(t, (Hc, Wc), n)
     _check(params, (mb_h * mb_w, NPARAM), "params")
+    sync = torch.empty(mb_h + 1, dtype=torch.int32, device=cb.device)
     _build.launch("intra_chroma", _load().intra_chroma, cb.data_ptr(), cr.data_ptr(),
-                  rcb.data_ptr(), rcr.data_ptr(), params.data_ptr(), mb_h, mb_w,
-                  torch.cuda.current_stream(cb.device).cuda_stream)
+                  rcb.data_ptr(), rcr.data_ptr(), params.data_ptr(), sync.data_ptr(),
+                  mb_h, mb_w, torch.cuda.current_stream(cb.device).cuda_stream)
 
 
 def intra_frame(y, cb, cr, resid_y, resid_cb, resid_cr, kind, modes4, i16mode,

@@ -43,12 +43,14 @@ def _prep_inputs(seed, mb_h=4, mb_w=4):
     )
 
 
-def _intra_inputs(seed, mb_h, mb_w):
-    """Every MB kind, every mode and random availability combinations."""
+def _intra_inputs(seed, mb_h, mb_w, all_intra=False):
+    """Every MB kind, every mode and random availability combinations; with
+    all_intra, every MB intra and every neighbour inside the picture
+    available (so every MB of the row kernels waits on the row above)."""
     rng = np.random.default_rng(seed)
     n = mb_h * mb_w
     H, W = 16 * mb_h, 16 * mb_w
-    kind = rng.integers(0, 4, n).astype(np.int32)
+    kind = rng.integers(1 if all_intra else 0, 4, n).astype(np.int32)
     base_y = rng.integers(0, 256, (H, W)).astype(np.int32)
     base_c = rng.integers(0, 256, (2, H // 2, W // 2)).astype(np.int32)
     ry = rng.integers(-40, 40, (H, W)).astype(np.int32)
@@ -57,6 +59,9 @@ def _intra_inputs(seed, mb_h, mb_w):
     i16 = rng.integers(0, 4, n).astype(np.int32)
     cm = rng.integers(0, 4, n).astype(np.int32)
     av = rng.random((4, n)) < 0.6
+    if all_intra:
+        my, mx = np.divmod(np.arange(n), mb_w)
+        av = np.stack([mx > 0, my > 0, (my > 0) & (mx < mb_w - 1), (my > 0) & (mx > 0)])
     return (base_y, base_c[0], base_c[1], ry, rc[0], rc[1], kind, modes4, i16, cm,
             av[0], av[1], av[2], av[3])
 
@@ -73,30 +78,28 @@ def cuda():
 SHAPES = [(4, 4), (9, 11), (1, 1), (1, 7), (7, 1), (140, 3)]
 
 
-def _diagonals(mb_h, mb_w):
-    """Non-empty 2:1 anti-diagonals d = mbx + 2*mby: the launches of a
-    per-diagonal kernel (mb_w + 2*(mb_h - 1) unless mb_w == 1)."""
-    return sum(1 for d in range(mb_w + 2 * (mb_h - 1))
-               if any(0 <= d - 2 * r < mb_w for r in range(mb_h)))
-
-
 def _launch_counts(names):
-    return {k: (_build.launches[k], _build.diag_launches[k]) for k in names}
+    return {k: (_build.launches[k], _build.device_kernels[k]) for k in names}
 
 
-def _assert_launched(before, mb_h, mb_w):
+def _assert_launched(before):
+    # every kernel is one persistent row-wavefront launch per call
     for k, (calls, kernels) in before.items():
         assert _build.launches[k] == calls + 1
-        # the luma kernels are one persistent launch; chroma one per diagonal
-        per_call = 1 if k.endswith("_luma") else _diagonals(mb_h, mb_w)
-        assert _build.diag_launches[k] == kernels + per_call
+        assert _build.device_kernels[k] == kernels + 1
 
 
-def _intra_args(cuda, seed, mb_h, mb_w):
-    return [torch.as_tensor(a, device=cuda) for a in _intra_inputs(seed, mb_h, mb_w)]
+def _intra_args(cuda, seed, mb_h, mb_w, all_intra=False):
+    return [torch.as_tensor(a, device=cuda)
+            for a in _intra_inputs(seed, mb_h, mb_w, all_intra)]
 
 
-def _deblock_args(cuda, seed, mb_h, mb_w):
+def _deblock_args(cuda, seed, mb_h, mb_w, edges="prep"):
+    """Planes and edge parameters. edges: "prep" keeps the derived bS;
+    "top" also sets bS 1..4 on every MB's chroma top edge (luma edge 0,
+    below the first MB row), so every MB of the chroma kernel waits;
+    "odd" leaves bS > 0 only on luma edges 1 and 3, which carry no chroma
+    edge, so no MB of the chroma kernel has work."""
     from h264decode_tpu_torch.kernels.deblock_prep_dev import deblock_prep_device
 
     p = _prep_inputs(seed, mb_h, mb_w)
@@ -106,6 +109,16 @@ def _deblock_args(cuda, seed, mb_h, mb_w):
     prep = deblock_prep_device(*(T(p[k]) for k in keys), p["offs"], mb_h, mb_w,
                                slot_cells=T(p["slot"]))
     rng = np.random.default_rng(seed)
+    H4, W4 = 4 * mb_h, 4 * mb_w
+    if edges == "top":
+        bs_h = prep["bs_h"].cpu().numpy()
+        bs_h[4:H4:4] = rng.integers(1, 5, (mb_h - 1, W4))
+        prep["bs_h"] = T(bs_h)
+    elif edges == "odd":
+        odd = rng.integers(1, 5, (2, H4, W4)).astype(np.int32)
+        odd[0][:, 0::2] = 0  # vertical: cell columns 1 and 3 of each MB
+        odd[1][0::2] = 0     # horizontal: cell rows 1 and 3
+        prep["bs_v"], prep["bs_h"] = T(odd[0]), T(odd[1])
     y = T(np.clip(128 + rng.integers(-12, 13, (16 * mb_h, 16 * mb_w)), 0, 255)
           .astype(np.uint8))
     cb, cr = (T(np.clip(128 + rng.integers(-10, 11, (8 * mb_h, 8 * mb_w)), 0, 255)
@@ -113,28 +126,32 @@ def _deblock_args(cuda, seed, mb_h, mb_w):
     return y, cb, cr, prep
 
 
+@pytest.mark.parametrize("all_intra", [False, True])
 @pytest.mark.parametrize("mb_h,mb_w", SHAPES)
-def test_intra_kernels_match_plain(cuda, mb_h, mb_w):
-    args = _intra_args(cuda, 31 + mb_h + mb_w, mb_h, mb_w)
+def test_intra_kernels_match_plain(cuda, mb_h, mb_w, all_intra):
+    args = _intra_args(cuda, 31 + mb_h + mb_w, mb_h, mb_w, all_intra)
     plain = t_intra.intra_wavefront(*args, mb_h, mb_w)
     before = _launch_counts(("intra_luma", "intra_chroma"))
     out = intra_cuda.intra_frame(*args, mb_h, mb_w)
     torch.cuda.synchronize()
     for a, b in zip(plain, out):
         assert torch.equal(a, b)
-    _assert_launched(before, mb_h, mb_w)
+    _assert_launched(before)
 
 
+@pytest.mark.parametrize("edges", ["prep", "top", "odd"])
 @pytest.mark.parametrize("mb_h,mb_w", SHAPES)
-def test_deblock_kernels_match_plain(cuda, mb_h, mb_w):
-    y, cb, cr, prep = _deblock_args(cuda, 41 + mb_h + mb_w, mb_h, mb_w)
+def test_deblock_kernels_match_plain(cuda, mb_h, mb_w, edges):
+    y, cb, cr, prep = _deblock_args(cuda, 41 + mb_h + mb_w, mb_h, mb_w, edges)
     plain = t_db.deblock_frame(y, cb, cr, prep, mb_h, mb_w)
     before = _launch_counts(("deblock_luma", "deblock_chroma"))
     out = deblock_cuda.deblock_frame(y, cb, cr, prep, mb_h, mb_w)
     torch.cuda.synchronize()
     for a, b in zip(plain, out):
         assert torch.equal(a, b)
-    _assert_launched(before, mb_h, mb_w)
+    if edges == "odd":  # luma edges 1 and 3 alone filter no chroma sample
+        assert torch.equal(out[1], cb) and torch.equal(out[2], cr)
+    _assert_launched(before)
 
 
 @pytest.mark.parametrize("mb_h,mb_w", [(9, 11), (140, 3)])
@@ -157,7 +174,10 @@ def test_wrappers_refuse_bad_tensors(cuda):
         intra_cuda.intra_luma(y, y, y, 4, 4)
     with pytest.raises(ValueError, match="uint8"):
         deblock_cuda.deblock_luma(y, {}, 4, 4)
-    # the luma deblock kernel moves sample rows 16 bytes at a time
+    # the deblock kernels move sample rows 16 (luma) and 8 (chroma) bytes at a time
     off = torch.zeros(64 * 64 + 1, dtype=torch.uint8, device=cuda)[1:].view(64, 64)
     with pytest.raises(ValueError, match="16-byte"):
         deblock_cuda.deblock_luma(off, {}, 4, 4)
+    offc = torch.zeros(32 * 32 + 1, dtype=torch.uint8, device=cuda)[1:].view(32, 32)
+    with pytest.raises(ValueError, match="8-byte"):
+        deblock_cuda.deblock_chroma(offc, offc, {}, 4, 4)

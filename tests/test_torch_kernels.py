@@ -187,6 +187,47 @@ def test_intra_plain_matches_jax(seed, mb_h, mb_w):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("seed,x,y", [(61, 1, 2), (62, 3, 1)])
+def test_intra_chroma_ignores_top_right(seed, x, y):
+    """Chroma intra prediction (spec 8.3.4) never reads the MB above-right,
+    the premise of the CUDA chroma kernel's wait for row y-1's MB x alone.
+    Every MB is intra with every neighbour available, except MB (x+1, y-1):
+    new samples there must leave the chroma of every MB outside the cone it
+    feeds through left, top and top-left neighbours (columns >= x+1, rows
+    >= y-1) unchanged, MB (x, y) included, in the JAX reference and in the
+    port's plain version (tolerance 0)."""
+    mb_h, mb_w = 5, 6
+    args = list(_intra_inputs(seed, mb_h, mb_w, all_intra=True))
+    kind, cmode = args[6].copy(), args[9].copy()
+    kind[(y - 1) * mb_w + x + 1] = 0
+    cmode[y * mb_w + x] = 3          # plane: reads the whole row above and the corner
+    cmode[y * mb_w + x + 1] = 2      # vertical: carries the new samples down
+    args[6], args[9] = kind, cmode
+    rng = np.random.default_rng(seed)
+    outs = []
+    for changed in (False, True):
+        a = list(args)
+        if changed:
+            for k in (1, 2):  # cb, cr
+                a[k] = a[k].copy()
+                a[k][8 * (y - 1):8 * y, 8 * (x + 1):8 * (x + 2)] = rng.integers(0, 256, (8, 8))
+        jo = j_intra.intra_wavefront(*(jnp.asarray(v) for v in a), mb_h, mb_w)
+        to = t_intra.intra_wavefront(*(T(v) for v in a), mb_h, mb_w)
+        for j, t in zip(jo[1:], to[1:]):
+            eq(j, t)
+        outs.append([t.numpy() for t in to[1:]])
+    cone = np.zeros((mb_h, mb_w), bool)
+    cone[y - 1:, x + 1:] = True
+    cone_px = np.kron(cone, np.ones((8, 8), bool))
+    below = np.zeros((mb_h, mb_w), bool)
+    below[y, x + 1] = True
+    below_px = np.kron(below, np.ones((8, 8), bool))
+    for before, after in zip(*outs):
+        np.testing.assert_array_equal(before[~cone_px], after[~cone_px])
+        # the new samples do reach the MB below them
+        assert not np.array_equal(before[below_px], after[below_px])
+
+
 @pytest.mark.parametrize("seed,mb_h,mb_w", [(41, 4, 4), (42, 9, 11)])
 def test_deblock_plain_matches_jax(seed, mb_h, mb_w):
     rng = np.random.default_rng(seed)

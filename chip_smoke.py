@@ -10,26 +10,30 @@ raises on failure, and the script then exits non-zero):
    kernels (one nvcc per csrc/*.cu, started together) and the native
    entropy engine, and print the build time.
 2. Kernels against their plain torch versions on the card, at 1080p
-   geometry (68 x 120 MBs), on seeded inputs that cover every MB kind, all
-   9 Intra4x4/8x8 modes, all 4 Intra16x16 and chroma modes, random
-   availability combinations, bS 0..4 and QP 0 and 51. Bit-exact
-   (tolerance 0: integer outputs). Race check by repetition: each
-   kernel's call is captured in a CUDA graph and replayed 20 times from the
-   reset inputs, every replay bit-exact against the plain output. Kernel
-   times: CUDA events around one replay of that graph, median of 5 (the
-   eager call's event time, which includes the host's enqueue gaps, is
-   printed beside it). Plain versions: events around the call.
-3. The main path: the committed 1080p Main CABAC stream through GpuDecoder
-   (launch counters set to 0 just before, read just after; every kernel
-   must have launched, each exactly one device kernel (a persistent row
-   wavefront) per call, and the native entropy engine must have decoded),
-   and through `python -m h264decode_tpu_torch decode`. Every frame's
-   per-plane MD5 must equal libavcodec's committed MD5s. Prints frames/s
-   from the median of three decodes (timing fence:
-   torch.cuda.synchronize()), the per-stage timers, and a torch.profiler
-   trace of one more decode (device busy time, idle share, kernels per
-   frame, top device kernels). Then the same for the committed CIF High
-   stream (Intra8x8, weighted prediction, 4 slices).
+   geometry (68 x 120 MBs), in two instantiations: 4:2:0 8-bit and 4:2:2
+   10-bit (16-line chroma MBs, uint16 deblock samples). Seeded inputs cover
+   every MB kind, all 9 Intra4x4/8x8 modes, all 4 Intra16x16 and chroma
+   modes, random availability combinations, bS 0..4, QP 0 and 51, and
+   samples over the whole range of the bit depth. Bit-exact (tolerance 0:
+   integer outputs). Race check by repetition: each kernel's call is
+   captured in a CUDA graph and replayed 20 times from the reset inputs,
+   every replay bit-exact against the plain output. Kernel times: CUDA
+   events around one replay of that graph, median of 5 (the eager call's
+   event time, which includes the host's enqueue gaps, is printed beside
+   it). Plain versions: events around the call (the 4:2:2 10-bit intra
+   one, about 20 s, is timed on its one call).
+3. The main path, stream by stream, through GpuDecoder (launch counters
+   set to 0 just before, read just after; every kernel must have launched,
+   each exactly one device kernel (a persistent row wavefront) per call,
+   and the native entropy engine must have decoded) and through
+   `python -m h264decode_tpu_torch decode`. Every frame's per-plane MD5
+   must equal libavcodec's committed MD5s. Prints frames/s from the median
+   of three decodes (timing fence: torch.cuda.synchronize()) and the
+   per-stage timers, and for the 1080p and CIF High streams a
+   torch.profiler trace of one more decode (device busy time, idle share,
+   kernels per frame, top device kernels). The streams: 1080p Main CABAC, CIF High (Intra8x8, weighted
+   prediction, 4 slices), 1080p High 4:2:2 10-bit (I/P/B, 8x8 transform),
+   CIF High 10 (weighted prediction, 4 slices) and CIF monochrome.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,8 +60,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (fp32 table entry)
 MB_H, MB_W = 68, 120  # 1920x1088 coded
 REPLAYS = 20  # graph replays per kernel in the race check
-# one persistent launch per call
+# the wrappers, each one persistent launch per call
 ROW_KERNELS = ("intra_luma", "intra_chroma", "deblock_luma", "deblock_chroma")
+# the kernels' instantiations held against their plain versions:
+# (ChromaArrayType, bit depth) -> suffix of the kernel table's row names
+FORMATS = {(1, 8): "", (2, 10): "_422_10"}
+# committed streams: (name, format suffix of the kernel rows its launches
+# count for or None, whether to trace it)
+STREAMS = (("smoke_1080p_main_cabac.h264", "", True),
+           ("smoke_cif_high.h264", None, True),
+           ("smoke_1080p_high422_10.h264", "_422_10", True),
+           ("smoke_cif_high10.h264", None, False),
+           ("smoke_cif_gray.h264", None, False))
 
 
 def log(msg: str):
@@ -139,22 +153,24 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def intra_inputs(dev, seed=1):
+def intra_inputs(dev, seed=1, ch_h=8, bd=8):
     import torch
 
     rng = np.random.default_rng(seed)
     n = MB_H * MB_W
     H, W = 16 * MB_H, 16 * MB_W
+    Hc, sh = ch_h * MB_H, bd - 8
     kind = rng.integers(0, 4, n).astype(np.int32)  # every kind, ~3/4 intra
     modes4 = rng.integers(0, 9, (n, 16)).astype(np.int32)  # all 9 modes
     i16 = rng.integers(0, 4, n).astype(np.int32)
     cm = rng.integers(0, 4, n).astype(np.int32)
     av = rng.random((4, n)) < 0.5  # all 16 availability combinations
+    top, r = 256 << sh, 60 << sh  # samples over 0 .. (1 << bd) - 1
     arrays = dict(
-        y=rng.integers(0, 256, (H, W)), cb=rng.integers(0, 256, (H // 2, W // 2)),
-        cr=rng.integers(0, 256, (H // 2, W // 2)), ry=rng.integers(-60, 60, (H, W)),
-        rcb=rng.integers(-60, 60, (H // 2, W // 2)),
-        rcr=rng.integers(-60, 60, (H // 2, W // 2)),
+        y=rng.integers(0, top, (H, W)), cb=rng.integers(0, top, (Hc, W // 2)),
+        cr=rng.integers(0, top, (Hc, W // 2)), ry=rng.integers(-r, r, (H, W)),
+        rcb=rng.integers(-r, r, (Hc, W // 2)),
+        rcr=rng.integers(-r, r, (Hc, W // 2)),
     )
     t = {k: torch.as_tensor(v.astype(np.int32), device=dev) for k, v in arrays.items()}
     for k, v in dict(kind=kind, modes4=modes4, i16=i16, cm=cm).items():
@@ -164,7 +180,7 @@ def intra_inputs(dev, seed=1):
     return t
 
 
-def deblock_inputs(dev, seed=2):
+def deblock_inputs(dev, seed=2, ch_h=8, bd=8):
     import torch
 
     from h264decode_tpu_torch.kernels.deblock_prep_dev import deblock_prep_device
@@ -187,31 +203,58 @@ def deblock_inputs(dev, seed=2):
         T(rng.integers(-12, 12, (2, H4, W4, 2)).astype(np.int32)),
         (int(rng.integers(-12, 13)), int(rng.integers(-12, 13))), MB_H, MB_W,
         slot_cells=T(rng.integers(-1, 3, (2, H4, W4)).astype(np.int32)),
+        chroma_all_h_edges=ch_h == 16,
     )
-    bs = torch.cat([prep["bs_v"].flatten(), prep["bs_h"].flatten()])
-    if set(torch.unique(bs).tolist()) != {0, 1, 2, 3, 4}:
-        raise RuntimeError("deblock inputs do not cover bS 0..4")
-    # low-contrast planes so the filters fire
-    planes = [torch.as_tensor(np.clip(128 + rng.integers(-12, 13, s), 0, 255)
-                              .astype(np.uint8), device=dev)
-              for s in ((16 * MB_H, 16 * MB_W), (8 * MB_H, 8 * MB_W), (8 * MB_H, 8 * MB_W))]
+    keys = ("bs_v", "bs_h", "bs_hc") if ch_h == 16 else ("bs_v", "bs_h")
+    for k in keys:
+        if set(torch.unique(prep[k]).tolist()) != {0, 1, 2, 3, 4}:
+            raise RuntimeError(f"deblock inputs: {k} does not cover bS 0..4")
+    shapes = ((16 * MB_H, 16 * MB_W), (ch_h * MB_H, 8 * MB_W), (ch_h * MB_H, 8 * MB_W))
+    if bd == 8:  # low-contrast planes so the filters fire
+        planes = [torch.as_tensor(np.clip(128 + rng.integers(-12, 13, s), 0, 255)
+                                  .astype(np.uint8), device=dev) for s in shapes]
+    else:
+        # a smooth field over the whole range (clipped at 0 and mx) with
+        # low-contrast noise, so the filters fire across MB edges too;
+        # int16 planes hold the uint16 samples
+        mx, sh = (1 << bd) - 1, bd - 8
+        planes = []
+        for h, w in shapes:
+            yy, xx = np.mgrid[0:h, 0:w]
+            field = (mx + 1) / 2 * (1 + 1.1 * np.sin(xx / (w / 7.0)) * np.cos(yy / (h / 5.0)))
+            a = np.clip(field + rng.integers(-(12 << sh), (12 << sh) + 1, (h, w)), 0, mx)
+            planes.append(torch.as_tensor(a.astype(np.int16), device=dev))
     return planes, prep
 
 
-def kernel_phase(dev) -> dict:
+def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
+    """The four kernels' instantiation for ChromaArrayType cat and bit
+    depth bd against their plain versions at 1080p geometry; returns the
+    kernel table's rows, keyed by row name (kernel name + format suffix)."""
     import torch
 
     from h264decode_tpu_torch.kernels import deblock_cuda, intra_cuda
     from h264decode_tpu_torch.kernels.deblock import deblock_frame as deblock_plain
     from h264decode_tpu_torch.kernels.intra import intra_wavefront
 
+    suffix = FORMATS[(cat, bd)]
+    ch_h, mid, mx, bd_scale = 16 if cat == 2 else 8, 1 << (bd - 1), (1 << bd) - 1, 1 << (bd - 8)
+    fmt_name = f"4:2:{'2' if cat == 2 else '0'} {bd}-bit"
+    sb = 1 if bd == 8 else 2  # bytes per deblock sample
     res = {}
     n = MB_H * MB_W
     # ---- intra
-    t = intra_inputs(dev)
+    t = intra_inputs(dev, ch_h=ch_h, bd=bd)
     args = (t["y"], t["cb"], t["cr"], t["ry"], t["rcb"], t["rcr"], t["kind"], t["modes4"],
-            t["i16"], t["cm"], t["avl"], t["avt"], t["avtr"], t["avtl"], MB_H, MB_W)
-    plain = intra_wavefront(*args)
+            t["i16"], t["cm"], t["avl"], t["avt"], t["avtr"], t["avtl"], MB_H, MB_W,
+            ch_h, mid, mx)
+    if bd == 8:
+        plain = intra_wavefront(*args)
+        ms_plain = cuda_ms(lambda: intra_wavefront(*args), runs=2)
+    else:  # ~20 s a call: time the one call whose output is compared
+        box = []
+        ms_plain = cuda_ms(lambda: box.append(intra_wavefront(*args)), runs=1, warmup=0)
+        plain = box[0]
     params = intra_cuda.pack_params(t["kind"], t["modes4"], t["i16"], t["cm"], t["avl"],
                                     t["avt"], t["avtr"], t["avtl"])
     work = {k: t[k].clone() for k in ("y", "cb", "cr")}
@@ -220,99 +263,108 @@ def kernel_phase(dev) -> dict:
         for k in ("y", "cb", "cr"):
             work[k].copy_(t[k])
 
-    intra_cuda.intra_luma(work["y"], t["ry"], params, MB_H, MB_W)
-    intra_cuda.intra_chroma(work["cb"], work["cr"], t["rcb"], t["rcr"], params, MB_H, MB_W)
+    run_l = lambda: intra_cuda.intra_luma(work["y"], t["ry"], params, MB_H, MB_W,  # noqa: E731
+                                          mid, mx)
+    run_c = lambda: intra_cuda.intra_chroma(work["cb"], work["cr"], t["rcb"],  # noqa: E731
+                                            t["rcr"], params, MB_H, MB_W, ch_h, mid, mx)
+    run_l()
+    run_c()
     torch.cuda.synchronize()
     err_l = int((work["y"] - plain[0]).abs().max())
     err_c = max(int((work["cb"] - plain[1]).abs().max()),
                 int((work["cr"] - plain[2]).abs().max()))
-    run_l = lambda: intra_cuda.intra_luma(work["y"], t["ry"], params, MB_H, MB_W)  # noqa: E731
-    run_c = lambda: intra_cuda.intra_chroma(work["cb"], work["cr"], t["rcb"],  # noqa: E731
-                                            t["rcr"], params, MB_H, MB_W)
     g_l, g_c = capture(run_l, reset_intra), capture(run_c, reset_intra)
-    replay_check("intra_luma", g_l, reset_intra, [work["y"]], plain[:1])
-    replay_check("intra_chroma", g_c, reset_intra, [work["cb"], work["cr"]], plain[1:])
+    replay_check("intra_luma" + suffix, g_l, reset_intra, [work["y"]], plain[:1])
+    replay_check("intra_chroma" + suffix, g_c, reset_intra, [work["cb"], work["cr"]],
+                 plain[1:])
     ms_l, ms_c = graph_ms(g_l, reset_intra), graph_ms(g_c, reset_intra)
     eager_l, eager_c = cuda_ms(run_l, reset_intra), cuda_ms(run_c, reset_intra)
-    ms_plain = cuda_ms(lambda: intra_wavefront(*args), runs=2)
     n_intra = int((t["kind"] > 0).sum())
     # bytes this data needs: every MB's params row is read; an intra MB reads
     # its residual and neighbour strips and writes its samples (int32)
     b_l = n * 4 * 20 + n_intra * 4 * (256 * 2 + 16 + 25)
-    b_c = n * 4 * 20 + n_intra * 4 * 2 * (64 * 2 + 8 + 9)
+    b_c = n * 4 * 20 + n_intra * 4 * 2 * (8 * ch_h * 2 + ch_h + 9)
     n_i4 = int((t["kind"] == 1).sum())
     n_i8 = int((t["kind"] == 2).sum())
     n_i16 = int((t["kind"] == 3).sum())
     # ~ops: a 4x4 sample ~20, an 8x8 sample ~60 (with reference filtering),
     # a 16x16 or chroma sample ~12, + residual add and clip (3 each)
     ops_l = 256 * (23 * n_i4 + 63 * n_i8 + 15 * n_i16)
-    ops_c = 2 * 64 * 15 * n_intra
+    ops_c = 2 * 8 * ch_h * 15 * n_intra
     for name, err, ms, nb, ops, src in (
         ("intra_luma", err_l, ms_l, b_l, ops_l, "intra_pallas.py:440"),
         ("intra_chroma", err_c, ms_c, b_c, ops_c, "intra_pallas.py:590"),
     ):
         bms, by = bound(nb, ops)
-        res[name] = dict(name=name, route="cuda", source="h264decode_tpu_torch/csrc/intra.cu",
-                         replaces=f"h264decode_tpu/kernels/{src}", max_abs_err=err,
-                         ms=ms, plain_ms=ms_plain, bound_ms=bms, bound_by=by,
-                         library_ms=None)
-    log(f"intra: max_abs_err luma {err_l} chroma {err_c}; kernel ms (graph replay) luma "
-        f"{ms_l} chroma {ms_c}; eager call (events around the enqueue) luma {eager_l} "
-        f"chroma {eager_c}; plain (both) {ms_plain} ms; "
+        res[name + suffix] = dict(
+            name=name + suffix, kernel=name, format=fmt_name, route="cuda",
+            source="h264decode_tpu_torch/csrc/intra.cu",
+            replaces=f"h264decode_tpu/kernels/{src}", max_abs_err=err, ms=ms,
+            plain_ms=ms_plain, bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"intra {fmt_name}: max_abs_err luma {err_l} chroma {err_c}; kernel ms (graph "
+        f"replay) luma {ms_l} chroma {ms_c}; eager call (events around the enqueue) luma "
+        f"{eager_l} chroma {eager_c}; plain (both) {ms_plain} ms; "
         f"MBs I4 {n_i4} I8 {n_i8} I16 {n_i16} of {n}; {REPLAYS} graph replays of each "
         f"bit-exact")
 
     # ---- deblock
-    (y0, cb0, cr0), prep = deblock_inputs(dev)
-    plain = deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W)
+    (y0, cb0, cr0), prep = deblock_inputs(dev, ch_h=ch_h, bd=bd)
+    fmt = (ch_h, bd_scale, mx)
+    plain = deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W, *fmt)
     dw = dict(y=y0.clone(), cb=cb0.clone(), cr=cr0.clone())
 
     def reset_db():
         for k, v in (("y", y0), ("cb", cb0), ("cr", cr0)):
             dw[k].copy_(v)
 
-    deblock_cuda.deblock_luma(dw["y"], prep, MB_H, MB_W)
-    deblock_cuda.deblock_chroma(dw["cb"], dw["cr"], prep, MB_H, MB_W)
-    torch.cuda.synchronize()
-    i16 = torch.int16
-    err_l = int((dw["y"].to(i16) - plain[0].to(i16)).abs().max())
-    err_c = max(int((dw["cb"].to(i16) - plain[1].to(i16)).abs().max()),
-                int((dw["cr"].to(i16) - plain[2].to(i16)).abs().max()))
-    changed = int((plain[0] != y0).sum())
-    if changed == 0:
-        raise RuntimeError("deblock inputs: the plain filter changed no sample")
-    run_l = lambda: deblock_cuda.deblock_luma(dw["y"], prep, MB_H, MB_W)  # noqa: E731
+    run_l = lambda: deblock_cuda.deblock_luma(dw["y"], prep, MB_H, MB_W,  # noqa: E731
+                                              bd_scale, mx)
     run_c = lambda: deblock_cuda.deblock_chroma(dw["cb"], dw["cr"], prep,  # noqa: E731
-                                                MB_H, MB_W)
+                                                MB_H, MB_W, *fmt)
+    run_l()
+    run_c()
+    torch.cuda.synchronize()
+    i32 = torch.int32
+    err_l = int((dw["y"].to(i32) - plain[0].to(i32)).abs().max())
+    err_c = max(int((dw["cb"].to(i32) - plain[1].to(i32)).abs().max()),
+                int((dw["cr"].to(i32) - plain[2].to(i32)).abs().max()))
+    changed = [int((p != q).sum()) for p, q in zip(plain, (y0, cb0, cr0))]
+    if 0 in changed:
+        raise RuntimeError(f"deblock inputs: the plain filter left a plane unchanged "
+                           f"({changed} samples changed)")
     g_l, g_c = capture(run_l, reset_db), capture(run_c, reset_db)
-    replay_check("deblock_luma", g_l, reset_db, [dw["y"]], plain[:1])
-    replay_check("deblock_chroma", g_c, reset_db, [dw["cb"], dw["cr"]], plain[1:])
+    replay_check("deblock_luma" + suffix, g_l, reset_db, [dw["y"]], plain[:1])
+    replay_check("deblock_chroma" + suffix, g_c, reset_db, [dw["cb"], dw["cr"]], plain[1:])
     ms_l, ms_c = graph_ms(g_l, reset_db), graph_ms(g_c, reset_db)
     eager_l, eager_c = cuda_ms(run_l, reset_db), cuda_ms(run_c, reset_db)
-    ms_plain = cuda_ms(lambda: deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W), runs=2)
-    mb_any = ((prep["bs_v"] > 0) | (prep["bs_h"] > 0)).reshape(MB_H, 4, MB_W, 4).any(3).any(1)
+    ms_plain = cuda_ms(lambda: deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W, *fmt), runs=2)
+    bs_c = prep["bs_hc"] if ch_h == 16 else prep["bs_h"]
+    mb_any = ((prep["bs_v"] > 0) | (prep["bs_h"] > 0) | (bs_c > 0)
+              ).reshape(MB_H, 4, MB_W, 4).any(3).any(1)
     n_act = int(mb_any.sum())
-    # bytes: every MB reads its 16 bS pairs; an active MB reads its luma
-    # thresholds and its samples (plus the 4-sample strips left and above)
-    # and writes its samples; uint8 planes
-    b_l = n * 16 * 4 * 2 + n_act * (16 * 4 * 4 + 20 * 20 + 256)
-    b_c = n * 16 * 4 * 2 + n_act * 2 * (16 * 4 * 4 + 12 * 12 + 64)
+    # bytes: every MB reads its 16 bS pairs; an active MB reads its
+    # thresholds and its samples (plus the strips left and above) and writes
+    # its samples; sb bytes per sample, chroma tiles of 4 + ch_h lines
+    b_l = n * 16 * 4 * 2 + n_act * (16 * 4 * 4 + (20 * 20 + 256) * sb)
+    b_c = n * 16 * 4 * 2 + n_act * 2 * (16 * 4 * 4 + (12 * (4 + ch_h) + 8 * ch_h) * sb)
     ops_l = n_act * 8 * 16 * 40  # 8 edges x 16 lines x ~40 ops
-    ops_c = n_act * 2 * 4 * 8 * 20
+    # 2 vertical edges x ch_h lines + (2 or 4) horizontal edges x 8 columns
+    ops_c = n_act * 2 * (2 * ch_h + (ch_h // 4 if ch_h == 16 else 2) * 8) * 20
     for name, err, ms, nb, ops, src in (
         ("deblock_luma", err_l, ms_l, b_l, ops_l, "deblock_pallas.py:211"),
         ("deblock_chroma", err_c, ms_c, b_c, ops_c, "deblock_pallas.py:295"),
     ):
         bms, by = bound(nb, ops)
-        res[name] = dict(name=name, route="cuda",
-                         source="h264decode_tpu_torch/csrc/deblock.cu",
-                         replaces=f"h264decode_tpu/kernels/{src}", max_abs_err=err,
-                         ms=ms, plain_ms=ms_plain, bound_ms=bms, bound_by=by,
-                         library_ms=None)
-    log(f"deblock: max_abs_err luma {err_l} chroma {err_c}; kernel ms (graph replay) luma "
-        f"{ms_l} chroma {ms_c}; eager call (events around the enqueue) luma {eager_l} "
-        f"chroma {eager_c}; plain (both) {ms_plain} ms; active MBs {n_act} of {n}; "
-        f"samples changed by the filter {changed}; {REPLAYS} graph replays of each bit-exact")
+        res[name + suffix] = dict(
+            name=name + suffix, kernel=name, format=fmt_name, route="cuda",
+            source="h264decode_tpu_torch/csrc/deblock.cu",
+            replaces=f"h264decode_tpu/kernels/{src}", max_abs_err=err, ms=ms,
+            plain_ms=ms_plain, bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"deblock {fmt_name}: max_abs_err luma {err_l} chroma {err_c}; kernel ms (graph "
+        f"replay) luma {ms_l} chroma {ms_c}; eager call (events around the enqueue) luma "
+        f"{eager_l} chroma {eager_c}; plain (both) {ms_plain} ms; active MBs {n_act} of "
+        f"{n}; samples changed by the filter (y, cb, cr) {changed}; {REPLAYS} graph "
+        f"replays of each bit-exact")
     bad = {k: v["max_abs_err"] for k, v in res.items() if v["max_abs_err"] != 0}
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
@@ -329,14 +381,28 @@ def md5s(planes) -> list[str]:
             for p in planes]
 
 
-def y4m_md5s(path: str, W: int, H: int) -> list[list[str]]:
+def y4m_md5s(path: str, want: dict) -> list[list[str]]:
+    """Per-frame, per-plane MD5s of a Y4M file, split by the fixed frame
+    size that the stream's geometry, bit depth (2-byte samples above 8) and
+    chroma format (full-height chroma for 4:2:2) give: the 6 bytes
+    "FRAME\\n" can occur inside 16-bit sample data."""
+    W, H = want["width"], want["height"]
+    bps = 2 if want["bit_depth"] > 8 else 1
+    Hc = H if want["chroma"] == "422" else (H + 1) // 2
+    sizes = (W * H * bps, (W + 1) // 2 * Hc * bps, (W + 1) // 2 * Hc * bps)
     with open(path, "rb") as f:
-        frames = f.read().split(b"FRAME\n")[1:]
+        raw = f.read()
+    pos = raw.index(b"\n") + 1
     out = []
-    for fr in frames:
-        a, b = W * H, W * H // 4
-        out.append([hashlib.md5(p).hexdigest() for p in (fr[:a], fr[a : a + b],
-                                                         fr[a + b : a + 2 * b])])
+    while pos < len(raw):
+        if raw[pos : pos + 6] != b"FRAME\n":
+            raise RuntimeError(f"{path}: no FRAME header at byte {pos}")
+        pos += 6
+        out.append([hashlib.md5(raw[pos + sum(sizes[:i]) : pos + sum(sizes[: i + 1])])
+                    .hexdigest() for i in range(3)])
+        pos += sum(sizes)
+    if pos != len(raw):
+        raise RuntimeError(f"{path}: {len(raw) - pos} bytes past the last whole frame")
     return out
 
 
@@ -403,7 +469,7 @@ def trace(dev, bs: bytes, name: str, wall_unprofiled: float) -> dict:
     }
 
 
-def main_path(dev, name: str, want: dict, kernel_names) -> dict:
+def main_path(dev, name: str, want: dict, kernel_names, traced: bool = True) -> dict:
     from h264decode_tpu_torch.entropy import native
     from h264decode_tpu_torch.kernels import _build
     from h264decode_tpu_torch.utils.metrics import DecodeMetrics
@@ -427,6 +493,10 @@ def main_path(dev, name: str, want: dict, kernel_names) -> dict:
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise RuntimeError(f"{name}: kernels never launched on the main path: {missing}")
+    many = {k: kernels[k] / launches[k] for k in kernel_names if kernels[k] != launches[k]}
+    if many:
+        raise RuntimeError(f"{name}: persistent kernels launched other than once per call "
+                           f"(device kernels per call): {many}")
     if native._lib is None or native_slices == 0:
         raise RuntimeError(f"{name}: the native entropy engine did not decode")
     # two more unprofiled decodes; frames/s is taken from the median wall
@@ -438,7 +508,8 @@ def main_path(dev, name: str, want: dict, kernel_names) -> dict:
         f"{launches}; device kernels they launched {kernels}; native entropy slices "
         f"{native_slices}")
     log(f"{name}: stage timers {json.dumps(metrics.summary())}")
-    log(f"{name}: trace {json.dumps(trace(dev, bs, name, wall))}")
+    if traced:
+        log(f"{name}: trace {json.dumps(trace(dev, bs, name, wall))}")
     # the CLI entry point, as a user would call it
     os.makedirs(OUT, exist_ok=True)
     y4m = os.path.join(OUT, name.replace(".h264", ".y4m"))
@@ -449,7 +520,7 @@ def main_path(dev, name: str, want: dict, kernel_names) -> dict:
     )
     if res.returncode != 0:
         raise RuntimeError(f"CLI decode of {name} failed:\n{res.stdout}\n{res.stderr}")
-    if y4m_md5s(y4m, want["width"], want["height"]) != want["frames"]:
+    if y4m_md5s(y4m, want) != want["frames"]:
         raise RuntimeError(f"CLI decode of {name}: frames differ from libavcodec")
     os.remove(y4m)
     log(f"{name}: CLI decode bit-exact ({res.stdout.splitlines()[0]})")
@@ -483,24 +554,26 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {k}: {line.strip()}")
 
-    kernels = kernel_phase(dev)
+    kernels = {}
+    for cat, bd in FORMATS:
+        kernels.update(kernel_phase(dev, cat, bd))
     with open(os.path.join(DATA, "smoke_md5.json")) as f:
         want = json.load(f)
-    names = list(kernels)
-    mp = main_path(dev, "smoke_1080p_main_cabac.h264",
-                   want["smoke_1080p_main_cabac.h264"], names)
-    main_path(dev, "smoke_cif_high.h264", want["smoke_cif_high.h264"], names)
-    for k in names:
-        kernels[k]["launches"] = mp["launches"][k]
-        kernels[k]["inner_launches_per_call"] = mp["kernels"][k] / mp["launches"][k]
-    many = {k: kernels[k]["inner_launches_per_call"] for k in ROW_KERNELS
-            if kernels[k]["inner_launches_per_call"] != 1.0}
-    if many:
-        raise RuntimeError(f"persistent kernels launched more than once per call: {many}")
+    paths = {}
+    for name, suffix, traced in STREAMS:
+        mp = paths[name] = main_path(dev, name, want[name], ROW_KERNELS, traced)
+        if suffix is None:
+            continue
+        # the launches of the format's main-path stream fill its rows
+        for k in ROW_KERNELS:
+            row = kernels[k + suffix]
+            row["launches"] = mp["launches"][k]
+            row["launch_stream"] = name
+            row["inner_launches_per_call"] = mp["kernels"][k] / mp["launches"][k]
     log(f"setup+run {time.time() - t0:.1f} s")
     log(json.dumps({"kernels": list(kernels.values()),
-                    "main_path": {"stream": "smoke_1080p_main_cabac.h264",
-                                  "frames_per_s": mp["fps"], "frames": mp["frames"]}}))
+                    "main_path": [{"stream": k, "frames_per_s": v["fps"],
+                                   "frames": v["frames"]} for k, v in paths.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

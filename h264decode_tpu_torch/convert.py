@@ -16,10 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# uint16 (the PCM planes above 8 bits) arrives as int16: the same bits, and
+# samples of up to 14 bits are non-negative there (torch has no CPU
+# arithmetic on uint16)
 _TORCH_DTYPE = {
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.int8): torch.int8,
     np.dtype(np.int16): torch.int16,
+    np.dtype(np.uint16): torch.int16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.bool_): torch.bool,
@@ -78,19 +82,29 @@ def wire_from_numpy(wire: dict, dyn: dict, device="cpu") -> tuple[dict, dict]:
     return unpack_wire(t, layout), dyn_to_torch(dyn, device)
 
 
-def ring_from_jax(ring_y, ring_cb, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
-    """Unpack the JAX package's pair-packed 8-bit DPB ring (numpy):
-    luma [R, 4, 2, Hp, Wp//2+2] uint16 -> [R, 4, Hp, Wp] uint8 half-pel
-    stacks; chroma [R, 2, Hpc, Wpc//2+2] uint32 (Cb | Cr<<8 samples, two
-    per word) -> [R, 2, Hpc, Wpc] uint8 (Cb, Cr)."""
-    ry = np.asarray(ring_y)[:, :, 0]  # phase 0: word w holds columns 2w, 2w+1
-    R, P, Hp, Wk = ry.shape
-    Wp = 2 * (Wk - 2)
-    y = np.stack([ry & 0xFF, ry >> 8], -1).reshape(R, P, Hp, 2 * Wk)[..., :Wp]
-    rc = np.asarray(ring_cb)[:, 0]
-    R, Hpc, Wkc = rc.shape
-    Wpc = 2 * (Wkc - 2)
-    c16 = np.stack([rc & 0xFFFF, rc >> 16], -1).reshape(R, Hpc, 2 * Wkc)[..., :Wpc]
-    c = np.stack([c16 & 0xFF, c16 >> 8], 1)  # [R, 2, Hpc, Wpc]
-    return (torch.as_tensor(y.astype(np.uint8), device=device),
-            torch.as_tensor(c.astype(np.uint8), device=device))
+def ring_from_jax(ring_y, ring_cb, ring_cr=None,
+                  device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Unpack the JAX package's pair-packed DPB ring (numpy) into the port's
+    [R, 4, Hp, Wp] half-pel stacks and [R, 2, Hpc, Wpc] (Cb, Cr) planes.
+
+    8-bit: luma [R, 4, 2, Hp, Wp//2+2] uint16 (two samples per word) and one
+    chroma ring [R, 2, Hpc, Wpc//2+2] uint32 (Cb | Cr<<8 samples, two per
+    word) -> uint8. Above 8 bits: luma uint32 words of two 16-bit samples,
+    and separate Cb and Cr rings of the same kind (ring_cb, ring_cr) ->
+    int16. Phase 0 of each ring holds the plain columns (word w: columns
+    2w, 2w+1); 4:2:2 rings differ only in their height Hpc."""
+    def unpair(r, bits):  # [..., H, Wk] words -> [..., H, 2*(Wk-2)] samples
+        Wk = r.shape[-1]
+        lo = r & ((1 << bits) - 1)
+        return np.stack([lo, r >> bits], -1).reshape(*r.shape[:-1], 2 * Wk)[..., : 2 * (Wk - 2)]
+
+    ry = np.asarray(ring_y)[:, :, 0]  # phase 0
+    if ry.dtype == np.uint16:  # 8-bit samples
+        y = unpair(ry, 8).astype(np.uint8)
+        c16 = unpair(np.asarray(ring_cb)[:, 0], 16)  # [R, Hpc, Wpc] Cb | Cr<<8
+        c = np.stack([c16 & 0xFF, c16 >> 8], 1).astype(np.uint8)
+    else:
+        y = unpair(ry, 16).astype(np.int16)
+        c = np.stack([unpair(np.asarray(r)[:, 0], 16) for r in (ring_cb, ring_cr)],
+                     1).astype(np.int16)
+    return torch.as_tensor(y, device=device), torch.as_tensor(c, device=device)

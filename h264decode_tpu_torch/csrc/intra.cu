@@ -1,10 +1,20 @@
-// Intra prediction + reconstruction (H.264 spec 8.3), 4:2:0 8-bit, for Hopper.
+// Intra prediction + reconstruction (H.264 spec 8.3) for Hopper: 4:2:0 and
+// 4:2:2 (ChromaArrayType 1 and 2, also 0 = monochrome run as 4:2:0), bit
+// depths 8 to 14.
 //
 // Replaces the Pallas TPU kernels of h264decode_tpu/kernels/intra_pallas.py:
 //   intra_luma   <- _make_luma_kernel   (intra_pallas.py:440)
 //   intra_chroma <- _make_chroma_kernel (intra_pallas.py:590)
-// called from intra_frame_pallas (intra_pallas.py:645). The plain version
-// it is held against is h264decode_tpu_torch/kernels/intra.py.
+// called from intra_frame_pallas (intra_pallas.py:645). Those are 4:2:0
+// 8-bit only; the JAX package runs 4:2:2 and high bit depths through the
+// XLA wavefront intra_wavefront(ch_h, mid, mx) (kernels/intra.py:391). The
+// plain version this file is held against is
+// h264decode_tpu_torch/kernels/intra.py, which covers every format.
+//
+// The format enters as arguments: the Clip1 ceiling mx = (1 << bd) - 1 and
+// the DC fallback mid = 1 << (bd - 1) for both kernels, and the chroma MB
+// height CH_H (8 or 16) as a template parameter of the chroma kernel. The
+// 8-bit instantiations (BD8) fold mid and mx to the constants 128 and 255.
 //
 // What bounds it on this card: the spec makes each luma macroblock depend
 // on its reconstructed left, top, top-right and top-left neighbours, so
@@ -29,25 +39,26 @@
 // (its pixels keep their inter/PCM values), the counterpart of the Pallas
 // kernels' skip of blocks without intra MBs.
 //
-// Chroma design (intra_chroma_rows): the same row wavefront, one block of
-// 128 threads per MB row (64 per component, one per sample), waiting for
-// row y-1 to finish MB x only. The block carries the reconstructed right
-// column of an intra MB in shared memory as the next MB's left column (a
-// non-intra left MB's column is read from the plane, which no block
-// writes); only the corner and the 8 samples above come from device memory
-// after the wait. The next MB's residual and parameters are loaded before
-// the wait; a non-intra MB only publishes.
+// Chroma design (intra_chroma_rows<CH_H>): the same row wavefront, one block
+// of 16 * CH_H threads per MB row (8 * CH_H per component, one per sample:
+// 128 threads for 4:2:0, 256 for 4:2:2), waiting for row y-1 to finish MB x
+// only. The block carries the reconstructed right column (CH_H samples) of
+// an intra MB in shared memory as the next MB's left column (a non-intra
+// left MB's column is read from the plane, which no block writes); only the
+// corner and the 8 samples above come from device memory after the wait.
+// The next MB's residual and parameters are loaded before the wait; a
+// non-intra MB only publishes.
 //
 // The C entry points take the caller's stream and report through
 // *n_launched how many kernels they launched (1 each).
 //
-// Data layout (all int32, contiguous): planes y [H, W], cb/cr [Hc, Wc],
-// updated in place; residual planes of the same shapes; params [nMB, 20]
-// = kind, i16mode, cmode, avail bits (1 left, 2 top, 4 top-right,
-// 8 top-left), modes4[16] (z-order; 8x8 modes in the first 4). Samples
-// outside the picture read as 0, as in the plain version. Each entry also
-// takes sync, int32[mb_h + 1] of scratch, which it zeroes on the stream
-// before the launch.
+// Data layout (all int32, contiguous): planes y [H, W], cb/cr [Hc, Wc]
+// (Hc = mb_h * CH_H), updated in place; residual planes of the same shapes;
+// params [nMB, 20] = kind, i16mode, cmode, avail bits (1 left, 2 top,
+// 4 top-right, 8 top-left), modes4[16] (z-order; 8x8 modes in the first 4).
+// Samples outside the picture read as 0, as in the plain version. Each entry
+// also takes sync, int32[mb_h + 1] of scratch, which it zeroes on the
+// stream before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,10 +77,12 @@ __constant__ int kBX[16] = {0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3};
 __constant__ int kBY[16] = {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3};
 __constant__ int kTR[16] = {0, 0, 1, 0, 0, 0, 1, 0, 1, 1, 1, 0, 1, 0, 1, 0};
 
-__device__ __forceinline__ int clip255(int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); }
+// Clip1 at the stream's bit depth: [0, mx]
+__device__ __forceinline__ int clip1(int v, int mx) { return v < 0 ? 0 : (v > mx ? mx : v); }
 
-__device__ __forceinline__ int dc3(bool hl, bool ht, int both, int only_t, int only_l) {
-  return (hl && ht) ? both : (ht ? only_t : (hl ? only_l : 128));
+// DC from both neighbours, the top, the left, or mid = 1 << (bd - 1)
+__device__ __forceinline__ int dc3(bool hl, bool ht, int both, int only_t, int only_l, int mid) {
+  return (hl && ht) ? both : (ht ? only_t : (hl ? only_l : mid));
 }
 
 // spec 8.3.1.2 / 8.3.2.2 prediction of sample (x, y) of an N x N block
@@ -125,9 +138,11 @@ __device__ int pred_nxn(int mode, int x, int y, const int* t, const int* l, int 
 // reaching into the top-right MB), column 0 the column to the left; rows
 // 1..16, columns 1..16 the MB itself. rs is the MB's residual, sp its
 // parameter row.
+template <bool BD8>
 __global__ void __launch_bounds__(256) intra_luma_rows(
     int* y, const int* __restrict__ res, const int* __restrict__ prm, int* sync,
-    int mb_h, int mb_w) {
+    int mb_h, int mb_w, int mid_arg, int mx_arg) {
+  const int mid = BD8 ? 128 : mid_arg, mx = BD8 ? 255 : mx_arg;
   __shared__ int sm[17][25];
   __shared__ int rs[16][16];
   __shared__ int sp[NPARAM];
@@ -178,14 +193,15 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
       int pred;
       if (mode == 0) pred = sm[0][1 + px];
       else if (mode == 1) pred = sm[1 + py][0];
-      else if (mode == 2) pred = dc3(avl, avt, (st + sl + 16) >> 5, (st + 8) >> 4, (sl + 8) >> 4);
+      else if (mode == 2)
+        pred = dc3(avl, avt, (st + sl + 16) >> 5, (st + 8) >> 4, (sl + 8) >> 4, mid);
       else {
         int a = 16 * (sm[16][0] + sm[0][16]);
         int b = (5 * hs + 32) >> 6, c = (5 * vs + 32) >> 6;
-        pred = clip255((a + b * (px - 7) + c * (py - 7) + 16) >> 5);
+        pred = clip1((a + b * (px - 7) + c * (py - 7) + 16) >> 5, mx);
       }
       // reads touch row 0 and column 0 only, writes the interior: no hazard
-      sm[1 + py][1 + px] = clip255(pred + rs[py][px]);
+      sm[1 + py][1 + px] = clip1(pred + rs[py][px], mx);
       __syncthreads();
     } else if (kind == K_I4) {
       for (int k = 0; k < 16; ++k) {
@@ -201,10 +217,10 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
           const bool htr = by > 0 ? (kTR[k] != 0) : (bx < 3 ? avt : avtr);
           if (!htr) for (int i = 4; i < 8; ++i) t[i] = t[3];
           int st = t[0] + t[1] + t[2] + t[3], sl = l[0] + l[1] + l[2] + l[3];
-          int dc = dc3(hl, ht, (st + sl + 4) >> 3, (st + 2) >> 2, (sl + 2) >> 2);
+          int dc = dc3(hl, ht, (st + sl + 4) >> 3, (st + 2) >> 2, (sl + 2) >> 2, mid);
           int mode = min(max(sp[4 + k], 0), 8);
           int pred = pred_nxn<4>(mode, x, yy, t, l, m, dc);
-          sm[R + 1 + yy][C + 1 + x] = clip255(pred + rs[4 * by + yy][4 * bx + x]);
+          sm[R + 1 + yy][C + 1 + x] = clip1(pred + rs[4 * by + yy][4 * bx + x], mx);
         }
         __syncthreads();
       }
@@ -236,10 +252,10 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
                        : hl ? (3 * m + l[0] + 2) >> 2 : m;
           int st = 0, sl = 0;
           for (int i = 0; i < 8; ++i) { st += ft[i]; sl += fl[i]; }
-          int dc = dc3(hl, ht, (st + sl + 8) >> 4, (st + 4) >> 3, (sl + 4) >> 3);
+          int dc = dc3(hl, ht, (st + sl + 8) >> 4, (st + 4) >> 3, (sl + 4) >> 3, mid);
           int mode = min(max(sp[4 + b8], 0), 8);
           int pred = pred_nxn<8>(mode, x, yy, ft, fl, fm, dc);
-          sm[R + 1 + yy][C + 1 + x] = clip255(pred + rs[8 * by8 + yy][8 * bx8 + x]);
+          sm[R + 1 + yy][C + 1 + x] = clip1(pred + rs[8 * by8 + yy][8 * bx8 + x], mx);
         }
         __syncthreads();
       }
@@ -251,22 +267,27 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
   }
 }
 
-// Chroma: one block of 128 threads per MB row; thread tid covers sample
-// (yy, x) = ((tid >> 3) & 7, tid & 7) of component tid >> 6 (0 Cb, 1 Cr).
-// top[c][i] holds picture sample (8*row - 1, 8*mbx - 1 + i): the corner and
-// the 8 samples above. left[mbx & 1][c] holds the 8 samples to the left
-// (double-buffered by MB parity, so the MB's right column can be stored for
-// the next MB while other threads still read this MB's left column).
-__global__ void __launch_bounds__(128) intra_chroma_rows(
+// Chroma: one block of 16 * CH_H threads per MB row; thread tid covers
+// sample (yy, x) = ((tid >> 3) % CH_H, tid & 7) of component tid / (8 * CH_H)
+// (0 Cb, 1 Cr). top[c][i] holds picture sample (CH_H*row - 1, 8*mbx - 1 + i):
+// the corner and the 8 samples above. left[mbx & 1][c] holds the CH_H
+// samples to the left (double-buffered by MB parity, so the MB's right
+// column can be stored for the next MB while other threads still read this
+// MB's left column).
+template <int CH_H, bool BD8>
+__global__ void __launch_bounds__(16 * CH_H) intra_chroma_rows(
     int* cb, int* cr, const int* __restrict__ rcb, const int* __restrict__ rcr,
-    const int* __restrict__ prm, int* sync, int mb_h, int mb_w) {
+    const int* __restrict__ prm, int* sync, int mb_h, int mb_w, int mid_arg, int mx_arg) {
+  const int mid = BD8 ? 128 : mid_arg, mx = BD8 ? 255 : mx_arg;
+  constexpr int NC = 8 * CH_H;  // samples (threads) per component
+  constexpr int YC = CH_H / 2;  // plane-mode centre row offset: 4 (4:2:0), 8 (4:2:2)
   __shared__ int top[2][9];
-  __shared__ int left[2][2][8];
+  __shared__ int left[2][2][CH_H];
   const int row = wavefront::take_row(sync);
   const int Wc = mb_w * 8;
-  const int c = threadIdx.x >> 6, i = threadIdx.x & 63, x = i & 7, yy = i >> 3;
+  const int c = threadIdx.x / NC, i = threadIdx.x % NC, x = i & 7, yy = i >> 3;
   int* pl = c ? cr : cb;
-  const int* res = (c ? rcr : rcb) + (8 * row + yy) * Wc + x;
+  const int* res = (c ? rcr : rcb) + (CH_H * row + yy) * Wc + x;
   const int* prm_row = prm + row * mb_w * NPARAM;
   // the next MB's residual sample and its kind / cmode / avail (no block
   // writes them)
@@ -287,15 +308,16 @@ __global__ void __launch_bounds__(128) intra_chroma_rows(
       wavefront::publish_row(sync, row, mbx + 1);
       continue;
     }
-    const int r0 = 8 * row, c0 = 8 * mbx;
+    const int r0 = CH_H * row, c0 = 8 * mbx;
     int* l = left[mbx & 1][c];
-    if (!have_left && i < 8)  // left MB not intra: its samples are final in the plane
+    if (!have_left && i < CH_H)  // left MB not intra: its samples are final in the plane
       l[i] = mbx > 0 ? __ldcg(pl + (r0 + i) * Wc + c0 - 1) : 0;
-    // Chroma prediction (spec 8.3.4) reads only the 8 samples to the left,
-    // the 8 above and the corner above-left, never the MB above-right: MB
-    // (x, row) depends on (x-1, row), (x, row-1) and (x-1, row-1) alone. So
-    // it waits until row-1 has finished MB x (need = x+1, not luma's x+2),
-    // and the chain is mb_w + mb_h - 1 MB steps (187 at 1080p).
+    // Chroma prediction (spec 8.3.4) reads only the CH_H samples to the
+    // left, the 8 above and the corner above-left, never the MB above-right,
+    // in 4:2:0 and 4:2:2 alike: MB (x, row) depends on (x-1, row),
+    // (x, row-1) and (x-1, row-1) alone. So it waits until row-1 has
+    // finished MB x (need = x+1, not luma's x+2), and the chain is
+    // mb_w + mb_h - 1 MB steps (187 at 1080p).
     wavefront::wait_row(sync, row, mbx + 1);
     if (i < 9)  // samples outside the picture read as 0
       top[c][i] = (row > 0 && c0 - 1 + i >= 0) ? __ldcg(pl + (r0 - 1) * Wc + c0 - 1 + i) : 0;
@@ -305,29 +327,30 @@ __global__ void __launch_bounds__(128) intra_chroma_rows(
     const int m = t[-1];
     const int mode = min(max(cm, 0), 3);
     int pred;
-    if (mode == 0) {  // DC per 4x4 quadrant (8.3.4.1-3)
+    if (mode == 0) {  // DC per 4x4 block (8.3.4.1-3)
       const int qx = x >> 2, qy = yy >> 2;
       int st = 0, sl = 0;
       for (int k = 0; k < 4; ++k) { st += t[4 * qx + k]; sl += l[4 * qy + k]; }
       const int both = (st + sl + 4) >> 3, ot = (st + 2) >> 2, ol = (sl + 2) >> 2;
-      if (qx == qy) pred = dc3(avl, avt, both, ot, ol);
-      else if (qx == 1) pred = avt ? ot : (avl ? ol : 128);  // top-right: prefer top
-      else pred = avl ? ol : (avt ? ot : 128);                 // bottom-left: prefer left
+      // the corner block and the blocks off both edges use both sides; the
+      // rest of the top row prefers the top, the rest of the left column
+      // the left
+      if ((qx == 0) == (qy == 0)) pred = dc3(avl, avt, both, ot, ol, mid);
+      else if (qx == 1) pred = avt ? ot : (avl ? ol : mid);
+      else pred = avl ? ol : (avt ? ot : mid);
     } else if (mode == 1) {
       pred = l[yy];
     } else if (mode == 2) {
       pred = t[x];
-    } else {
+    } else {  // plane (8.3.4.4): xCF = 0, yCF = 0 (4:2:0) or 4 (4:2:2)
       int hs = 0, vs = 0;
-      for (int k = 0; k < 4; ++k) {
-        hs += (k + 1) * (t[4 + k] - (k == 3 ? m : t[2 - k]));
-        vs += (k + 1) * (l[4 + k] - (k == 3 ? m : l[2 - k]));
-      }
-      int a = 16 * (l[7] + t[7]);
-      int b = (34 * hs + 32) >> 6, cc = (34 * vs + 32) >> 6;
-      pred = clip255((a + b * (x - 3) + cc * (yy - 3) + 16) >> 5);
+      for (int k = 0; k < 4; ++k) hs += (k + 1) * (t[4 + k] - (k == 3 ? m : t[2 - k]));
+      for (int k = 0; k < YC; ++k) vs += (k + 1) * (l[YC + k] - (k == YC - 1 ? m : l[YC - 2 - k]));
+      int a = 16 * (l[CH_H - 1] + t[7]);
+      int b = (34 * hs + 32) >> 6, cc = ((CH_H == 8 ? 34 : 5) * vs + 32) >> 6;
+      pred = clip1((a + b * (x - 3) + cc * (yy - (YC - 1)) + 16) >> 5, mx);
     }
-    const int v = clip255(pred + rs);
+    const int v = clip1(pred + rs, mx);
     pl[(r0 + yy) * Wc + c0 + x] = v;
     if (x == 7) left[(mbx + 1) & 1][c][yy] = v;  // right column -> next MB's left
     have_left = true;
@@ -338,29 +361,49 @@ __global__ void __launch_bounds__(128) intra_chroma_rows(
 }  // namespace
 
 extern "C" int intra_luma(void* y, const void* res, const void* params, void* sync,
-                          int mb_h, int mb_w, void* stream, int* n_launched) {
+                          int mb_h, int mb_w, int mid, int mx, void* stream,
+                          int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
   cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (mb_h + 1), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  intra_luma_rows<<<mb_h, 256, 0, s>>>(static_cast<int*>(y), static_cast<const int*>(res),
-                                       static_cast<const int*>(params),
-                                       static_cast<int*>(sync), mb_h, mb_w);
+  int* py = static_cast<int*>(y);
+  const int *pr = static_cast<const int*>(res), *prm = static_cast<const int*>(params);
+  int* ps = static_cast<int*>(sync);
+  if (mx == 255)
+    intra_luma_rows<true><<<mb_h, 256, 0, s>>>(py, pr, prm, ps, mb_h, mb_w, mid, mx);
+  else
+    intra_luma_rows<false><<<mb_h, 256, 0, s>>>(py, pr, prm, ps, mb_h, mb_w, mid, mx);
   *n_launched = 1;
   return static_cast<int>(cudaGetLastError());
 }
 
+// ch_h: chroma MB height, 8 (4:2:0) or 16 (4:2:2)
 extern "C" int intra_chroma(void* cb, void* cr, const void* rcb, const void* rcr,
-                            const void* params, void* sync, int mb_h, int mb_w, void* stream,
-                            int* n_launched) {
+                            const void* params, void* sync, int mb_h, int mb_w, int ch_h,
+                            int mid, int mx, void* stream, int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
+  if (ch_h != 8 && ch_h != 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (mb_h + 1), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  intra_chroma_rows<<<mb_h, 128, 0, s>>>(
-      static_cast<int*>(cb), static_cast<int*>(cr), static_cast<const int*>(rcb),
-      static_cast<const int*>(rcr), static_cast<const int*>(params), static_cast<int*>(sync),
-      mb_h, mb_w);
+  int *pcb = static_cast<int*>(cb), *pcr = static_cast<int*>(cr);
+  const int *prcb = static_cast<const int*>(rcb), *prcr = static_cast<const int*>(rcr);
+  const int* prm = static_cast<const int*>(params);
+  int* psync = static_cast<int*>(sync);
+  const bool bd8 = mx == 255;
+  if (ch_h == 8 && bd8)
+    intra_chroma_rows<8, true><<<mb_h, 128, 0, s>>>(pcb, pcr, prcb, prcr, prm, psync, mb_h,
+                                                    mb_w, mid, mx);
+  else if (ch_h == 8)
+    intra_chroma_rows<8, false><<<mb_h, 128, 0, s>>>(pcb, pcr, prcb, prcr, prm, psync, mb_h,
+                                                     mb_w, mid, mx);
+  else if (bd8)
+    intra_chroma_rows<16, true><<<mb_h, 256, 0, s>>>(pcb, pcr, prcb, prcr, prm, psync, mb_h,
+                                                     mb_w, mid, mx);
+  else
+    intra_chroma_rows<16, false><<<mb_h, 256, 0, s>>>(pcb, pcr, prcb, prcr, prm, psync, mb_h,
+                                                      mb_w, mid, mx);
   *n_launched = 1;
   return static_cast<int>(cudaGetLastError());
 }

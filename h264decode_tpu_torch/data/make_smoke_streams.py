@@ -3,13 +3,29 @@
     python -m h264decode_tpu_torch.data.make_smoke_streams
 
 Writes, next to this file:
-  smoke_1080p_main_cabac.h264  1920x1080 Main CABAC, I/P/B with 2 B-frames,
-                               x264 preset fast, QP 28, 8 frames (the stream
-                               recipe of bench.py's default content)
-  smoke_cif_high.h264          352x288 High CABAC, 8x8dct, 4 slices,
-                               weightp=2, ref=3, 2 B-frames, 8 frames
-  smoke_md5.json               per stream: libavcodec's per-frame, per-plane
-                               MD5s (output order) and its frame geometry
+  smoke_1080p_main_cabac.h264    1920x1080 Main CABAC, I/P/B with 2 B-frames,
+                                 x264 preset fast, QP 28, 8 frames (the stream
+                                 recipe of bench.py's default content)
+  smoke_cif_high.h264            352x288 High CABAC, 8x8dct, 4 slices,
+                                 weightp=2, ref=3, 2 B-frames, 8 frames
+  smoke_1080p_high422_10.h264    1920x1080 High 4:2:2 10-bit CABAC, I/P/B
+                                 with 2 B-frames, 8x8dct, preset fast, QP 28,
+                                 8 frames (the 1080p content at 10 bits with
+                                 full-height chroma)
+  smoke_cif_high10.h264          352x288 High 10 (4:2:0 10-bit) CABAC,
+                                 8x8dct, 4 slices, weightp=2, ref=3,
+                                 2 B-frames, 8 frames
+  smoke_cif_gray.h264            352x288 High 4:0:0 (monochrome) 8-bit CABAC,
+                                 8x8dct, 2 B-frames, 8 frames
+  smoke_md5.json                 per stream: libavcodec's per-frame,
+                                 per-plane MD5s (output order), its frame
+                                 geometry, bit depth and chroma format.
+                                 Samples above 8 bits are hashed as
+                                 little-endian uint16. libavcodec returns no
+                                 chroma planes for a monochrome stream; the
+                                 decoder presents them as 4:2:0 planes of
+                                 mid-gray 1 << (bd - 1), and the MD5s stored
+                                 for them are those of such planes.
 
 Needs the system libavcodec/libx264 (golden/lavc.py); decoding the streams
 needs neither, which is why they are committed.
@@ -26,21 +42,23 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def frames_1080p(n: int = 8, h: int = 1080, w: int = 1920):
+def frames_1080p(n: int = 8, h: int = 1080, w: int = 1920, ch: int | None = None):
     """bench.py's default content: a smooth textured plane panning by
-    (2, 1) pixels per frame, with a slow chroma gradient."""
+    (2, 1) pixels per frame, with a slow chroma gradient. ch: chroma height
+    (h // 2 for 4:2:0, the default; h for 4:2:2)."""
+    ch = h // 2 if ch is None else ch
     rng = np.random.default_rng(7)
     yy, xx = np.mgrid[0:h, 0:w]
     base = np.clip(
         128 + 60 * np.sin(xx / 17.0) * np.cos(yy / 23.0) + rng.normal(0, 8, (h, w)),
         0, 255,
     ).astype(np.uint8)
+    cxx = np.mgrid[0:ch, 0 : w // 2][1]
     frames = []
     for i in range(n):
         y = np.roll(np.roll(base, 2 * i, axis=1), i, axis=0)
-        cb = np.clip(110 + 40 * np.sin(xx[: h // 2, : w // 2] / 31.0 + i * 0.1),
-                     0, 255).astype(np.uint8)
-        cr = np.full((h // 2, w // 2), 128, np.uint8)
+        cb = np.clip(110 + 40 * np.sin(cxx / 31.0 + i * 0.1), 0, 255).astype(np.uint8)
+        cr = np.full((ch, w // 2), 128, np.uint8)
         frames.append((y, cb, cr))
     return frames
 
@@ -64,33 +82,67 @@ def frames_cif(n: int = 8, h: int = 288, w: int = 352):
     return frames
 
 
+def to_10bit(frames):
+    """8-bit content scaled to 10 bits (samples x 4), as uint16 planes."""
+    return [tuple(p.astype(np.uint16) << 2 for p in planes) for planes in frames]
+
+
 def plane_md5s(frames) -> list[list[str]]:
     return [[hashlib.md5(np.ascontiguousarray(p).tobytes()).hexdigest() for p in planes]
             for planes in frames]
 
 
+def golden_planes(golden, bit_depth: int):
+    """libavcodec's planes per frame; a monochrome frame's missing chroma
+    planes become the 4:2:0 mid-gray planes the decoder presents."""
+    out = []
+    for g in golden:
+        y, cb, cr = g.planes()
+        if cb.size == 0:
+            cb = cr = np.full(((y.shape[0] + 1) // 2, (y.shape[1] + 1) // 2),
+                              1 << (bit_depth - 1), y.dtype)
+        out.append((y, cb, cr))
+    return out
+
+
 def main():
     from ..golden import lavc
 
+    cif = "8x8dct=1:slices=4:weightp=2:ref=3"
+    # name -> (stream, bit depth, chroma format)
     streams = {
-        "smoke_1080p_main_cabac.h264": lavc.encode_x264(
+        "smoke_1080p_main_cabac.h264": (lavc.encode_x264(
             frames_1080p(), qp=28, profile="main", cabac=True, bframes=2,
             preset="fast", gop=8,
-        ),
-        "smoke_cif_high.h264": lavc.encode_x264(
+        ), 8, "420"),
+        "smoke_cif_high.h264": (lavc.encode_x264(
             frames_cif(), qp=28, profile="high", cabac=True, bframes=2,
-            preset="medium", gop=8, extra_x264="8x8dct=1:slices=4:weightp=2:ref=3",
-        ),
+            preset="medium", gop=8, extra_x264=cif,
+        ), 8, "420"),
+        "smoke_1080p_high422_10.h264": (lavc.encode_x264(
+            to_10bit(frames_1080p(ch=1080)), qp=28, profile="high422", csp="yuv422p10le",
+            cabac=True, bframes=2, preset="fast", gop=8, extra_x264="8x8dct=1",
+        ), 10, "422"),
+        "smoke_cif_high10.h264": (lavc.encode_x264(
+            to_10bit(frames_cif()), qp=28, profile="high10", csp="yuv420p10le",
+            cabac=True, bframes=2, preset="medium", gop=8, extra_x264=cif,
+        ), 10, "420"),
+        "smoke_cif_gray.h264": (lavc.encode_x264(
+            [(y,) for y, _, _ in frames_cif()], qp=28, profile="high", csp="gray",
+            cabac=True, bframes=2, preset="medium", gop=8, extra_x264="8x8dct=1",
+        ), 8, "gray"),
     }
     md5 = {}
-    for name, bs in streams.items():
+    for name, (bs, bit_depth, chroma) in streams.items():
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(bs)
         golden = lavc.decode_annexb(bs)
         md5[name] = {
             "width": int(golden[0].y.shape[1]),
             "height": int(golden[0].y.shape[0]),
-            "frames": plane_md5s([g.planes() for g in golden]),
+            "bit_depth": bit_depth,
+            "chroma": chroma,
+            "frames": plane_md5s(golden_planes(golden, bit_depth)),
         }
         print(f"{name}: {len(bs)} bytes, {len(golden)} frames")
     with open(os.path.join(HERE, "smoke_md5.json"), "w") as f:

@@ -5,7 +5,9 @@ of pipeline/deblock_prep.py): boundary strength per 4x4 cell edge from the
 coded status, MVs and ring-slot picture identities, and indexA/indexB for
 luma and both chroma components. The outputs feed kernels/deblock.py and
 kernels/deblock_cuda.py directly; every grid is int32 [H4, W4] (chroma
-thresholds [2, H4, W4]).
+thresholds [2, H4, W4]). For 4:2:2 (chroma_all_h_edges) it also emits
+bs_hc, the horizontal bS without the 8x8-transform suppression: 4:2:2
+chroma has a transform edge every 4 chroma rows, at every luma cell row.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ def deblock_prep_device(
     mb_h: int,
     mb_w: int,
     slot_cells=None,  # optional [2, H4, W4] ref slots
+    chroma_all_h_edges: bool = False,  # 4:2:2: also emit "bs_hc"
 ) -> dict:
     H4, W4 = mb_h * 4, mb_w * 4
     dev = qp_mb.device
@@ -149,6 +152,9 @@ def deblock_prep_device(
         exists = torch.where(
             mb_boundary, ~at_edge, torch.where(t8, pos == 2, torch.ones_like(t8))
         )
+        if direction == "h" and chroma_all_h_edges:
+            exists_c = torch.where(mb_boundary, ~at_edge, torch.ones_like(t8)) & common
+            prep["bs_hc"] = torch.where(exists_c, bs, 0 * one).contiguous()
         bs = torch.where(exists & common, bs, 0 * one)
 
         qp_av = (p_qp + qp + 1) >> 1

@@ -11,7 +11,9 @@ compute all prediction modes -> select -> add the residual -> scatter.
 
 Inter and I_PCM macroblocks are pre-placed in the planes by the caller; only
 intra MBs are written. Samples outside the picture read as 0 (the planes
-are zero-padded), as in the JAX version. 4:2:0, 8-bit.
+are zero-padded), as in the JAX version. The format enters as the chroma MB
+height ch_h (8 for 4:2:0, 16 for 4:2:2), the DC fallback mid = 1 << (bd-1)
+and the Clip1 ceiling mx = (1 << bd) - 1.
 """
 
 from __future__ import annotations
@@ -290,6 +292,47 @@ def chroma_modes(t8, l8, m, have_l, have_t, mid=128, mx=255):
     return torch.stack([p_dc, p_h, p_v, plane], dim=1).to(torch.int32)
 
 
+def chroma_modes_422(t8, l16, m, have_l, have_t, mid=128, mx=255):
+    """Spec 8.3.4 (4:2:2): DC per 4x4 block of the 8x16 component, H/V, and
+    the plane with yCF = 4. t8: [s, 8] top row, l16: [s, 16] left column.
+    Returns [s, 4, 16, 8]."""
+    s = t8.shape[0]
+    dev = t8.device
+    yy = torch.arange(16, device=dev)[:, None]
+    xx = torch.arange(8, device=dev)[None, :]
+    sum_t = [t8[:, i * 4 : i * 4 + 4].sum(1) for i in range(2)]
+    sum_l = [l16[:, i * 4 : i * 4 + 4].sum(1) for i in range(4)]
+    p_dc = torch.zeros((s, 16, 8), dtype=torch.int32, device=dev)
+    for by in range(4):
+        for bx in range(2):
+            both = (sum_t[bx] + sum_l[by] + 4) >> 3
+            only_t = (sum_t[bx] + 2) >> 2
+            only_l = (sum_l[by] + 2) >> 2
+            mid_t = torch.full_like(both, mid)
+            if (bx == 0) == (by == 0):  # the corner block and the inner ones
+                dc = _dc3(have_l, have_t, both, only_t, only_l, mid)
+            elif bx > 0:  # top row, right block: prefer top
+                dc = torch.where(have_t, only_t, torch.where(have_l, only_l, mid_t))
+            else:  # left column, lower blocks: prefer left
+                dc = torch.where(have_l, only_l, torch.where(have_t, only_t, mid_t))
+            sel = (yy // 4 == by) & (xx // 4 == bx)
+            p_dc = torch.where(sel, _c(dc), p_dc)
+    p_h = l16[:, :, None].expand(s, 16, 8)
+    p_v = t8[:, None, :].expand(s, 16, 8)
+    T = torch.cat([m[:, None], t8], dim=1)
+    L = torch.cat([m[:, None], l16], dim=1)
+    ks, ks8 = np.arange(4), np.arange(8)
+    w4 = torch.arange(1, 5, device=dev, dtype=torch.int32)[None, :]
+    w8 = torch.arange(1, 9, device=dev, dtype=torch.int32)[None, :]
+    hsum = (w4 * (_g(T, 5 + ks) - _g(T, 3 - ks))).sum(1)
+    vsum = (w8 * (_g(L, 9 + ks8) - _g(L, 7 - ks8))).sum(1)
+    a = 16 * (l16[:, 15] + t8[:, 7])
+    b = (34 * hsum + 32) >> 6
+    c = (5 * vsum + 32) >> 6  # (34 - 29 * (ChromaArrayType == 2)) at yCF = 4
+    plane = torch.clamp((_c(a) + _c(b) * (xx - 3) + _c(c) * (yy - 7) + 16) >> 5, 0, mx)
+    return torch.stack([p_dc, p_h, p_v, plane], dim=1).to(torch.int32)
+
+
 def intra_wavefront(
     y, cb, cr,  # [H, W]/[Hc, Wc] int32 planes with inter+PCM content placed
     resid_y, resid_cb, resid_cr,  # int32 residual planes (all MBs)
@@ -300,17 +343,20 @@ def intra_wavefront(
     avl, avt, avtr, avtl,  # [nMB] bool: MB-level intra availability
     mb_h: int,
     mb_w: int,
+    ch_h: int = 8,  # chroma MB height in samples: 8 (4:2:0) / 16 (4:2:2)
+    mid: int = 128,  # DC fallback = 1 << (BitDepth - 1)
+    mx: int = 255,  # Clip1 ceiling = (1 << BitDepth) - 1
 ):
     """Runs the anti-diagonal intra wavefront; returns new int32 (y, cb, cr)."""
     dev = y.device
     i32 = torch.int32
     H, W = mb_h * 16, mb_w * 16
-    Hc, Wc = mb_h * 8, mb_w * 8
+    Hc, Wc = mb_h * ch_h, mb_w * 8
     # pad: PAD top/left/right, bottom PAD + a scratch strip that inactive
     # slots gather from and scatter back into
     yp = torch.zeros((H + 2 * PAD + 16, W + 2 * PAD), dtype=i32, device=dev)
     yp[PAD : PAD + H, PAD : PAD + W] = y
-    cbp = torch.zeros((Hc + 2 * PAD + 8, Wc + 2 * PAD), dtype=i32, device=dev)
+    cbp = torch.zeros((Hc + 2 * PAD + ch_h, Wc + 2 * PAD), dtype=i32, device=dev)
     cbp[PAD : PAD + Hc, PAD : PAD + Wc] = cb
     crp = torch.zeros_like(cbp)
     crp[PAD : PAD + Hc, PAD : PAD + Wc] = cr
@@ -318,7 +364,7 @@ def intra_wavefront(
     rpy[:H] = resid_y
     rpc = []
     for r in (resid_cb, resid_cr):
-        t = torch.zeros((Hc + 8, Wc), dtype=i32, device=dev)
+        t = torch.zeros((Hc + ch_h, Wc), dtype=i32, device=dev)
         t[:Hc] = r
         rpc.append(t)
     kind_g = kind.to(i32).reshape(mb_h, mb_w)
@@ -371,25 +417,27 @@ def intra_wavefront(
         t16 = gather_row(yp, ty - 1, tx, 16)
         l16 = gather_col(yp, ty, tx - 1, 16)
         m = yp[ty - 1, tx - 1]
-        preds = intra16_modes(t16, l16, m, mavl, mavt)
+        preds = intra16_modes(t16, l16, m, mavl, mavt, mid, mx)
         pred = preds[sl, torch.clamp(i16_g[mbys, mbx], 0, 3).long()]
         res = rpy[patch_idx(where_s(act16, mbys * 16, 0), where_s(act16, mbx * 16, 0), 16, 16)]
         pi = patch_idx(ty, tx, 16, 16)
-        yp[pi] = torch.where(_c(act16), torch.clamp(pred + res, 0, 255), yp[pi])
+        yp[pi] = torch.where(_c(act16), torch.clamp(pred + res, 0, mx), yp[pi])
 
         # ---- chroma for every intra MB (MB-level dependencies only)
         actc = k_mb != K_NONE
+        cm_fn = chroma_modes if ch_h == 8 else chroma_modes_422
         for plane, resid in ((cbp, rpc[0]), (crp, rpc[1])):
-            cy = where_s(actc, mbys * 8 + PAD, scr_c)
+            cy = where_s(actc, mbys * ch_h + PAD, scr_c)
             cx = where_s(actc, mbx * 8 + PAD, 0)
             t8c = gather_row(plane, cy - 1, cx, 8)
-            l8c = gather_col(plane, cy, cx - 1, 8)
+            lc = gather_col(plane, cy, cx - 1, ch_h)
             mc = plane[cy - 1, cx - 1]
-            cpreds = chroma_modes(t8c, l8c, mc, mavl, mavt)
+            cpreds = cm_fn(t8c, lc, mc, mavl, mavt, mid, mx)
             cpred = cpreds[sl, torch.clamp(cm_g[mbys, mbx], 0, 3).long()]
-            cres = resid[patch_idx(where_s(actc, mbys * 8, 0), where_s(actc, mbx * 8, 0), 8, 8)]
-            ci = patch_idx(cy, cx, 8, 8)
-            plane[ci] = torch.where(_c(actc), torch.clamp(cpred + cres, 0, 255), plane[ci])
+            cres = resid[patch_idx(where_s(actc, mbys * ch_h, 0), where_s(actc, mbx * 8, 0),
+                                   ch_h, 8)]
+            ci = patch_idx(cy, cx, ch_h, 8)
+            plane[ci] = torch.where(_c(actc), torch.clamp(cpred + cres, 0, mx), plane[ci])
 
         # ---- 16 sequential sub-steps: 4x4 (every k) and 8x8 (k % 4 == 0)
         act4 = k_mb == K_I4
@@ -412,12 +460,12 @@ def intra_wavefront(
             t8 = torch.cat(
                 [t8[:, :4], torch.where(have_tr[:, None], t8[:, 4:], t8[:, 3:4])], dim=1
             )
-            preds = intra4x4_modes(t8, l4, mm, have_l, have_t)
+            preds = intra4x4_modes(t8, l4, mm, have_l, have_t, mid)
             pred = preds[sl, torch.clamp(m4[:, k], 0, 8).long()]
             res = rpy[patch_idx(where_s(act4, mbys * 16 + by * 4, 0),
                                 where_s(act4, mbx * 16 + bx * 4, 0), 4, 4)]
             pi = patch_idx(gy, gx, 4, 4)
-            yp[pi] = torch.where(_c(act4), torch.clamp(pred + res, 0, 255), yp[pi])
+            yp[pi] = torch.where(_c(act4), torch.clamp(pred + res, 0, mx), yp[pi])
 
             if k % 4 == 0:
                 b8 = k // 4
@@ -438,12 +486,12 @@ def intra_wavefront(
                     [t16b[:, :8], torch.where(have_tr[:, None], t16b[:, 8:], t16b[:, 7:8])],
                     dim=1,
                 )
-                preds = intra8x8_modes(t16b, l8b, mm, have_l, have_t, have_c)
+                preds = intra8x8_modes(t16b, l8b, mm, have_l, have_t, have_c, mid)
                 pred = preds[sl, torch.clamp(m4[:, b8], 0, 8).long()]
                 res = rpy[patch_idx(where_s(act8, mbys * 16 + by8 * 8, 0),
                                     where_s(act8, mbx * 16 + bx8 * 8, 0), 8, 8)]
                 pi = patch_idx(gy, gx, 8, 8)
-                yp[pi] = torch.where(_c(act8), torch.clamp(pred + res, 0, 255), yp[pi])
+                yp[pi] = torch.where(_c(act8), torch.clamp(pred + res, 0, mx), yp[pi])
     return (
         yp[PAD : PAD + H, PAD : PAD + W].contiguous(),
         cbp[PAD : PAD + Hc, PAD : PAD + Wc].contiguous(),

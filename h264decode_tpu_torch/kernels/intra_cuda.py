@@ -1,9 +1,12 @@
 """Intra prediction on the GPU: wrappers of the CUDA kernels in csrc/intra.cu.
 
-Counterpart of h264decode_tpu/kernels/intra_pallas.py. `intra_frame`
-keeps intra_wavefront's contract (kernels/intra.py). A CUDA tensor goes to
-the hand-written kernels and nothing else; a CPU tensor takes the plain
-version, because the kernels do not run on the CPU.
+Counterpart of h264decode_tpu/kernels/intra_pallas.py (4:2:0 8-bit) and of
+the XLA wavefront the JAX package runs for 4:2:2 and high bit depths.
+`intra_frame` keeps intra_wavefront's contract (kernels/intra.py), format
+arguments included: chroma MB height ch_h (8 or 16), DC fallback mid and
+Clip1 ceiling mx. A CUDA tensor goes to the hand-written kernels and
+nothing else; a CPU tensor takes the plain version, because the kernels do
+not run on the CPU.
 """
 
 from __future__ import annotations
@@ -25,9 +28,9 @@ def _load():
     if _lib is None:
         lib = _build.load("intra")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.intra_luma.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
+        lib.intra_luma.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
         lib.intra_luma.restype = ci
-        lib.intra_chroma.argtypes = [vp] * 6 + [ci, ci, vp, vp]
+        lib.intra_chroma.argtypes = [vp] * 6 + [ci] * 5 + [vp, vp]
         lib.intra_chroma.restype = ci
         _lib = lib
     return _lib
@@ -47,13 +50,25 @@ def _check(t: torch.Tensor, shape, name: str):
     _build.check_tensor(t, shape, torch.int32, name)
 
 
+def _check_format(mid: int, mx: int, ch_h: int = 8):
+    """Raise unless (mid, mx) is (1 << (bd-1), (1 << bd) - 1) for a bit
+    depth bd of 8..14 and ch_h is 8 (4:2:0) or 16 (4:2:2)."""
+    bd = (mx + 1).bit_length() - 1
+    if not (8 <= bd <= 14 and mx == (1 << bd) - 1 and mid == 1 << (bd - 1)):
+        raise ValueError(f"intra: unsupported sample format mid={mid} mx={mx} "
+                         "(need bit depth 8..14)")
+    if ch_h not in (8, 16):
+        raise ValueError(f"intra: chroma MB height {ch_h} is not 8 (4:2:0) or 16 (4:2:2)")
+
+
 def intra_luma(y: torch.Tensor, ry: torch.Tensor, params: torch.Tensor,
-               mb_h: int, mb_w: int) -> None:
+               mb_h: int, mb_w: int, mid: int = 128, mx: int = 255) -> None:
     """Reconstruct the intra MBs of luma plane y [H, W] int32 in place (one
     launch: a persistent row wavefront, csrc/wavefront.cuh). A hand-off
     between rows that stalls for seconds traps in the kernel; a trap is a
     sticky CUDA error, so every later CUDA call of the process fails."""
     H, W = 16 * mb_h, 16 * mb_w
+    _check_format(mid, mx)
     _check(y, (H, W), "y")
     _check(ry, (H, W), "resid_y")
     _check(params, (mb_h * mb_w, NPARAM), "params")
@@ -61,40 +76,44 @@ def intra_luma(y: torch.Tensor, ry: torch.Tensor, params: torch.Tensor,
     # concurrent calls never share it; the C entry zeroes it on the stream
     sync = torch.empty(mb_h + 1, dtype=torch.int32, device=y.device)
     _build.launch("intra_luma", _load().intra_luma, y.data_ptr(), ry.data_ptr(),
-                  params.data_ptr(), sync.data_ptr(), mb_h, mb_w,
+                  params.data_ptr(), sync.data_ptr(), mb_h, mb_w, mid, mx,
                   torch.cuda.current_stream(y.device).cuda_stream)
 
 
 def intra_chroma(cb: torch.Tensor, cr: torch.Tensor, rcb: torch.Tensor,
-                 rcr: torch.Tensor, params: torch.Tensor, mb_h: int, mb_w: int) -> None:
-    """Reconstruct the intra MBs of chroma planes cb/cr [Hc, Wc] int32 in
-    place (one launch: a persistent row wavefront, csrc/wavefront.cuh). A
-    hand-off between rows that stalls for seconds traps in the kernel; a
-    trap is a sticky CUDA error, so every later CUDA call of the process
-    fails."""
-    Hc, Wc = 8 * mb_h, 8 * mb_w
+                 rcr: torch.Tensor, params: torch.Tensor, mb_h: int, mb_w: int,
+                 ch_h: int = 8, mid: int = 128, mx: int = 255) -> None:
+    """Reconstruct the intra MBs of chroma planes cb/cr [mb_h * ch_h, Wc]
+    int32 in place (one launch: a persistent row wavefront,
+    csrc/wavefront.cuh). A hand-off between rows that stalls for seconds
+    traps in the kernel; a trap is a sticky CUDA error, so every later CUDA
+    call of the process fails."""
+    _check_format(mid, mx, ch_h)
+    Hc, Wc = ch_h * mb_h, 8 * mb_w
     for t, n in ((cb, "cb"), (cr, "cr"), (rcb, "resid_cb"), (rcr, "resid_cr")):
         _check(t, (Hc, Wc), n)
     _check(params, (mb_h * mb_w, NPARAM), "params")
     sync = torch.empty(mb_h + 1, dtype=torch.int32, device=cb.device)
     _build.launch("intra_chroma", _load().intra_chroma, cb.data_ptr(), cr.data_ptr(),
                   rcb.data_ptr(), rcr.data_ptr(), params.data_ptr(), sync.data_ptr(),
-                  mb_h, mb_w, torch.cuda.current_stream(cb.device).cuda_stream)
+                  mb_h, mb_w, ch_h, mid, mx, torch.cuda.current_stream(cb.device).cuda_stream)
 
 
 def intra_frame(y, cb, cr, resid_y, resid_cb, resid_cr, kind, modes4, i16mode,
-                cmode, avl, avt, avtr, avtl, mb_h: int, mb_w: int):
+                cmode, avl, avt, avtr, avtl, mb_h: int, mb_w: int, ch_h: int = 8,
+                mid: int = 128, mx: int = 255):
     """Drop-in for kernels.intra.intra_wavefront: returns new int32
     (y, cb, cr) with every intra MB reconstructed."""
     if not y.is_cuda:
         return intra_wavefront(y, cb, cr, resid_y, resid_cb, resid_cr, kind, modes4,
-                               i16mode, cmode, avl, avt, avtr, avtl, mb_h, mb_w)
+                               i16mode, cmode, avl, avt, avtr, avtl, mb_h, mb_w,
+                               ch_h, mid, mx)
     i32 = torch.int32
     params = pack_params(kind, modes4, i16mode, cmode, avl, avt, avtr, avtl)
     y = y.to(i32, copy=True).contiguous()
     cb = cb.to(i32, copy=True).contiguous()
     cr = cr.to(i32, copy=True).contiguous()
-    intra_luma(y, resid_y.to(i32).contiguous(), params, mb_h, mb_w)
+    intra_luma(y, resid_y.to(i32).contiguous(), params, mb_h, mb_w, mid, mx)
     intra_chroma(cb, cr, resid_cb.to(i32).contiguous(), resid_cr.to(i32).contiguous(),
-                 params, mb_h, mb_w)
+                 params, mb_h, mb_w, ch_h, mid, mx)
     return y, cb, cr

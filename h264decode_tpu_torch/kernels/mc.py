@@ -9,9 +9,11 @@ weighted combine.
 
 The JAX package stores the ring pair-packed (two columns per word, two
 phase copies) because of TPU gather costs; here the ring is the plain stack
-[R, 4, H+2*PAD, W+2*PAD] uint8 (chroma [R, 2, Hc+2*PAD, Wc+2*PAD]). Column
-reads past the right margin clamp to the last column, which is the value
-the packed layout's edge padding holds there, so the results are identical.
+[R, 4, H+2*PAD, W+2*PAD] (chroma [R, 2, Hc+2*PAD, Wc+2*PAD]) of uint8
+samples at 8 bits and int16 samples above (up to 14 bits fit; torch has no
+CPU arithmetic on uint16). Column reads past the right margin clamp to the
+last column, which is the value the packed layout's edge padding holds
+there, so the results are identical.
 
 Every gather index is clamped explicitly: torch does not clamp
 out-of-range indices. All arithmetic is int32.
@@ -42,8 +44,15 @@ def _filt6(a0, a1, a2, a3, a4, a5):
     return a0 - 5 * a1 + 20 * a2 + 20 * a3 - 5 * a4 + a5
 
 
+def sample_dtype(mx: int) -> torch.dtype:
+    """The port's sample dtype for Clip1 ceiling mx: uint8 at 8 bits, int16
+    above."""
+    return torch.uint8 if mx == 255 else torch.int16
+
+
 def half_pel_planes(ref: torch.Tensor, mx: int = 255) -> torch.Tensor:
-    """ref: [H, W] -> [4, H+2*PAD, W+2*PAD] uint8 stack (G, b, h, j).
+    """ref: [H, W] -> [4, H+2*PAD, W+2*PAD] stack (G, b, h, j) in
+    sample_dtype(mx); the filter outputs Clip1 at mx.
 
     b = horizontal half-pel (right of G), h = vertical half-pel (below G),
     j = center half-pel, over the edge-replicated canvas so any MV (after
@@ -60,7 +69,7 @@ def half_pel_planes(ref: torch.Tensor, mx: int = 255) -> torch.Tensor:
         b_raw[0:-5], b_raw[1:-4], b_raw[2:-3], b_raw[3:-2], b_raw[4:-1], b_raw[5:]
     )
     j = torch.clamp((j_raw + 512) >> 10, 0, mx)
-    return torch.stack([g, b, h, j]).to(torch.uint8)
+    return torch.stack([g, b, h, j]).to(sample_dtype(mx))
 
 
 def chroma_pad(ref: torch.Tensor) -> torch.Tensor:
@@ -95,7 +104,7 @@ QPEL_TAB = np.array(
 
 
 def luma_mc(
-    ring: torch.Tensor,  # [R, 4, Hp, Wp] uint8 half-pel stacks
+    ring: torch.Tensor,  # [R, 4, Hp, Wp] half-pel stacks
     slot: torch.Tensor,  # [H4, W4] int32 (valid where >= 0)
     mv: torch.Tensor,  # [H4, W4, 2] int32 quarter-pel
     H: int,
@@ -145,16 +154,20 @@ def luma_mc(
 
 
 def chroma_mc_pair(
-    ring: torch.Tensor,  # [R, 2, Hpc, Wpc] uint8 padded Cb/Cr
+    ring: torch.Tensor,  # [R, 2, Hpc, Wpc] padded Cb/Cr samples
     slot: torch.Tensor,  # [H4, W4] int32 (luma-cell granularity)
     mv: torch.Tensor,  # [H4, W4, 2] int32 quarter-pel luma MV
     Hc: int,
     Wc: int,
+    chroma_array_type: int = 1,
 ):
-    """4:2:0 eighth-pel bilinear prediction of both chroma components.
-    Each 2x2 chroma cell shares one MV; its two pixels read source columns
-    (x, x+1) and (x+1, x+2) from a cell position clamped once, as in the
-    JAX version. Returns (pred_cb, pred_cr) int32 planes."""
+    """Eighth-pel bilinear prediction of both chroma components (spec
+    8.4.2.2.2). 4:2:0 halves the rows (2 chroma rows per luma cell, eighth-
+    pel vertical MV); 4:2:2 keeps them (4 rows per cell, yIntC = mv >> 2,
+    yFracC = (mv & 3) << 1). The two pixels of a chroma cell row share one
+    MV and read source columns (x, x+1) and (x+1, x+2) from a cell position
+    clamped once, as in the JAX version. Returns (pred_cb, pred_cr) int32
+    planes."""
     dev = ring.device
     Hp, Wp = ring.shape[-2], ring.shape[-1]
     RH, RW = Hp - 2 * PAD, Wp - 2 * PAD
@@ -163,16 +176,21 @@ def chroma_mc_pair(
     plane_sz = Hp * Wp
     mv = mv.to(torch.int64)
     R = ring.shape[0]
-    sl = torch.clamp(slot.to(torch.int64), 0, R - 1).repeat_interleave(2, dim=0)
-    mvx = mv[..., 0].repeat_interleave(2, dim=0)  # [Hc, Wc2]
-    mvy = mv[..., 1].repeat_interleave(2, dim=0)
+    rv = 4 if chroma_array_type == 2 else 2  # chroma rows per luma cell
+    sl = torch.clamp(slot.to(torch.int64), 0, R - 1).repeat_interleave(rv, dim=0)
+    mvx = mv[..., 0].repeat_interleave(rv, dim=0)  # [Hc, Wc2]
+    mvy = mv[..., 1].repeat_interleave(rv, dim=0)
     yy = torch.arange(Hc, device=dev)[:, None]
     xx0 = (torch.arange(Wc2, device=dev) * 2)[None, :]
     xi = torch.clamp(xx0 + (mvx >> 3), -PAD, RW - 1 + PAD) + PAD
-    yi = torch.clamp(yy + (mvy >> 3), -PAD, RH - 1 + PAD) + PAD
+    if chroma_array_type == 2:
+        yi = torch.clamp(yy + (mvy >> 2), -PAD, RH - 1 + PAD) + PAD
+        fy = ((mvy & 3) << 1)[..., None]
+    else:
+        yi = torch.clamp(yy + (mvy >> 3), -PAD, RH - 1 + PAD) + PAD
+        fy = (mvy & 7)[..., None]
     yi1 = torch.clamp(yi + 1, max=Hp - 1)
     fx = (mvx & 7)[..., None]
-    fy = (mvy & 7)[..., None]
     k = torch.arange(3, device=dev)
     cols = torch.clamp(xi[..., None] + k, max=Wp - 1)  # [Hc, Wc2, 3]
     out = []

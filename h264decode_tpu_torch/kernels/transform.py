@@ -20,7 +20,7 @@ from ..pipeline.reference_recon import (
     _POS_CLASS_4x4,
     _POS_CLASS_8x8,
 )
-from ..tensors.frame_tensors import LUMA_BLK_XY, ZIGZAG_4x4, ZIGZAG_8x8
+from ..tensors.frame_tensors import CHROMA422_DC_SCAN, LUMA_BLK_XY, ZIGZAG_4x4, ZIGZAG_8x8
 
 # inverse permutations: raster position -> scan index
 _DEZIG4 = np.zeros(16, np.int64)
@@ -150,10 +150,14 @@ def hadamard2x2(c: torch.Tensor) -> torch.Tensor:
     )
 
 
-def chroma_qp(qp_y: torch.Tensor, offset: int) -> torch.Tensor:
-    """Table 8-15 QPc (8-bit: QpBdOffsetC = 0)."""
-    qpi = torch.clamp(qp_y.to(torch.int32) + offset, 0, 51)
-    return _idx(CHROMA_QP_TAB, qpi)[qpi.long()]
+def chroma_qp(qp_y: torch.Tensor, offset: int, bd_off_c: int = 0) -> torch.Tensor:
+    """Table 8-15 QPc; qPI clips into [-QpBdOffsetC, 51] and the effective
+    QP'c = QPc + QpBdOffsetC (what dequant consumes) is returned."""
+    qpi = torch.clamp(qp_y.to(torch.int32) + offset, -bd_off_c, 51)
+    if bd_off_c == 0:  # 8 bits: qPI is in 0..51, where the table is QPc
+        return _idx(CHROMA_QP_TAB, qpi)[qpi.long()]
+    qpc = _idx(CHROMA_QP_TAB, qpi)[torch.clamp(qpi, 0, 51).long()]
+    return torch.where(qpi < 30, qpi, qpc) + bd_off_c
 
 
 def blocks_to_plane(blocks: torch.Tensor, mb_h: int, mb_w: int) -> torch.Tensor:
@@ -175,6 +179,12 @@ def chroma_blocks_to_plane(blocks: torch.Tensor, mb_h: int, mb_w: int) -> torch.
     """[nMB, 4(raster), 4, 4] chroma 4x4 blocks -> [8*mb_h, 8*mb_w]."""
     b = blocks.reshape(mb_h, mb_w, 2, 2, 4, 4).permute(0, 2, 4, 1, 3, 5)
     return b.reshape(mb_h * 8, mb_w * 8)
+
+
+def chroma_blocks_to_plane_422(blocks: torch.Tensor, mb_h: int, mb_w: int) -> torch.Tensor:
+    """[nMB, 8(raster 2x4), 4, 4] 4:2:2 chroma blocks -> [16*mb_h, 8*mb_w]."""
+    b = blocks.reshape(mb_h, mb_w, 4, 2, 4, 4).permute(0, 2, 4, 1, 3, 5)
+    return b.reshape(mb_h * 16, mb_w * 8)
 
 
 def _sel_m(tab_mb: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
@@ -240,12 +250,14 @@ def chroma_residual_planes(
     qp_offsets: tuple[int, int],
     mb_h: int,
     mb_w: int,
+    bd: int = 8,
 ):
-    """Residual planes for Cb and Cr, 4:2:0 8-bit (spec 8.5.11 + 8.5.12)."""
+    """Residual planes for Cb and Cr, 4:2:0 (spec 8.5.11 + 8.5.12); qp is
+    the raw QPY, bd the chroma bit depth."""
     out = []
     i4 = intra.reshape(-1, 1, 1, 1)
     for comp in range(2):
-        qpc = chroma_qp(qp, int(qp_offsets[comp]))  # [nMB]
+        qpc = chroma_qp(qp, int(qp_offsets[comp]), 6 * (bd - 8))  # [nMB] QP'c
         ls = torch.where(i4, ls4[0, comp], ls4[1, comp])  # [nMB, 6, 4, 4]
         f = hadamard2x2(chroma_dc[:, comp].to(torch.int32).reshape(-1, 2, 2))
         ls00 = _sel_m(ls[:, :, 0, 0], qpc)[:, :, None]  # [nMB, 1, 1]
@@ -254,4 +266,48 @@ def chroma_residual_planes(
         d = _dequant(c, _sel_m(ls, qpc), qpc, 4).clone()
         d[:, :, 0, 0] = dcc.reshape(-1, 4)  # raster 2x2 = block raster order
         out.append(chroma_blocks_to_plane(idct4x4(d), mb_h, mb_w))
+    return out[0], out[1]
+
+
+# 4:2:2 chroma DC scan position -> raster position in the [4, 2] DC grid
+_DC422_PERM = np.zeros(8, np.int64)
+for _k, (_i, _j) in enumerate(CHROMA422_DC_SCAN):
+    _DC422_PERM[_i * 2 + _j] = _k
+
+
+def chroma_residual_planes_422(
+    chroma_dc: torch.Tensor,  # [nMB, 2, 8] spec 8.5.4 inverse-scan order
+    chroma_ac: torch.Tensor,  # [nMB, 2, 8, 16] scan (raster 2x4 blocks)
+    qp: torch.Tensor,  # [nMB] luma qp
+    intra: torch.Tensor,  # [nMB] bool
+    ls4: torch.Tensor,  # [2(intra/inter), 2(cb/cr), 6, 4, 4]
+    qp_offsets: tuple[int, int],
+    mb_h: int,
+    mb_w: int,
+    bd: int = 8,
+):
+    """4:2:2 residual planes for Cb and Cr: 8 blocks per MB component with
+    the 2x4 DC transform at qP,DC = QP'c + 3 (spec 8.5.11.1-2 for
+    ChromaArrayType 2), written out as butterflies."""
+    out = []
+    i4 = intra.reshape(-1, 1, 1, 1)
+    for comp in range(2):
+        qpc = chroma_qp(qp, int(qp_offsets[comp]), 6 * (bd - 8))
+        ls = torch.where(i4, ls4[0, comp], ls4[1, comp])  # [nMB, 6, 4, 4]
+        c = chroma_dc[:, comp].to(torch.int32)[:, _idx(_DC422_PERM, qp)].reshape(-1, 4, 2)
+        c0, c1, c2, c3 = c[:, 0], c[:, 1], c[:, 2], c[:, 3]  # rows of [nMB, 2]
+        g = torch.stack([c0 + c1 + c2 + c3, c0 + c1 - c2 - c3, c0 - c1 - c2 + c3,
+                         c0 - c1 + c2 - c3], dim=1)  # H4 @ c
+        f = torch.stack([g[..., 0] + g[..., 1], g[..., 0] - g[..., 1]], dim=-1)  # @ H2
+        qp_dc = qpc + 3
+        ls00 = _sel_m(ls[:, :, 0, 0], qp_dc)[:, :, None]  # [nMB, 1, 1]
+        dv6 = (qp_dc // 6).reshape(-1, 1, 1)
+        hi = (f * ls00) << torch.clamp(dv6 - 6, min=0)
+        rnd = torch.ones_like(dv6) << torch.clamp(5 - dv6, min=0)
+        lo = (f * ls00 + rnd) >> torch.clamp(6 - dv6, min=0)
+        dcc = torch.where(dv6 >= 6, hi, lo)  # [nMB, 4, 2]
+        d = _dequant(dezigzag4(chroma_ac[:, comp].to(torch.int32)), _sel_m(ls, qpc), qpc,
+                     4).clone()
+        d[:, :, 0, 0] = dcc.reshape(-1, 8)  # raster 2x4 = block order
+        out.append(chroma_blocks_to_plane_422(idct4x4(d), mb_h, mb_w))
     return out[0], out[1]

@@ -1,4 +1,4 @@
-"""The per-frame GPU reconstruction program and its host glue (4:2:0, 8-bit).
+"""The per-frame GPU reconstruction program and its host glue.
 
 Counterpart of h264decode_tpu/pipeline/tpu_pipeline.py. One call of
 `frame_step` runs the whole device path for a frame: unpack the wire ->
@@ -6,7 +6,15 @@ residual transforms (kernels/transform) -> motion compensation from the DPB
 ring (kernels/mc) -> intra (the CUDA kernels of kernels/intra_cuda) ->
 bS and thresholds (kernels/deblock_prep_dev) -> deblocking (the CUDA
 kernels of kernels/deblock_cuda) -> half-pel planes into the ring slot ->
-one packed output plane [H + H/2, W] (Y on top, Cb | Cr below).
+one packed output plane [H + Hc, W] (Y on top, Cb | Cr below).
+
+Formats on the device path, as in the JAX package: ChromaArrayType 1 (4:2:0)
+and 2 (4:2:2, full-height chroma, Hc = H) and monochrome (run as 4:2:0;
+its chroma planes hold the mid-gray convention), at one bit depth bd of
+8..14 for luma and chroma. Samples are uint8 at 8 bits and int16 above (the
+same bits as uint16; torch has no CPU arithmetic on uint16), and the host
+sees uint16 planes. High-bit-depth 4:4:4 and mixed luma/chroma depths
+decode on the host oracle; 8-bit 4:4:4 is not ported yet.
 
 The host side (GpuDecoder) drives entropy decoding into FrameTensors,
 builds the narrow per-frame wire, uploads it through one pinned staging
@@ -37,6 +45,7 @@ from ..kernels.deblock_cuda import deblock_frame
 from ..kernels.deblock_prep_dev import _mb_to_cells, deblock_prep_device
 from ..kernels.intra import K_I4, K_I8, K_I16
 from ..kernels.intra_cuda import intra_frame
+from ..kernels.mc import sample_dtype
 from ..syntax.pps import PPS
 from ..syntax.sps import SPS
 from ..tensors.frame_tensors import (
@@ -121,23 +130,31 @@ def _rep(a, ry: int, rx: int):
 
 
 def _base_planes(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
-                 need_s2: bool = True):
+                 need_s2: bool = True, cat: int = 1, bd: int = 8):
     """Residual transforms + motion compensation (weighted, both lists
     masked) + PCM placement: every data-parallel pixel stage. Returns
     (base_y, base_cb, base_cr, ry, rcb, rcr) int32, where the base planes
-    hold the inter + PCM content (zeros at intra MBs) and r* the residuals."""
+    hold the inter + PCM content (zeros at intra MBs) and r* the residuals.
+    cat: ChromaArrayType (2 = 4:2:2 with full-height chroma; 1 also for
+    monochrome); bd: the bit depth of luma and chroma."""
     H, W = mb_h * 16, mb_w * 16
-    Hc, Wc = mb_h * 8, mb_w * 8
+    ch_h = 16 if cat == 2 else 8
+    Hc, Wc = mb_h * ch_h, mb_w * 8
     n = mb_h * mb_w
     dev = inp["qp"].device
+    mx = (1 << bd) - 1
     l8 = inp["luma8_ac"] if has_l8 else torch.zeros((n, 4, 64), dtype=_I32, device=dev)
+    # QP'Y = QPY + QpBdOffsetY feeds luma dequant; chroma takes the raw QPY
+    qp_y = inp["qp"] if bd == 8 else inp["qp"] + 6 * (bd - 8)
     ry = tr_k.luma_residual_plane(
-        inp["luma_ac"], inp["luma_dc"], l8, inp["qp"], inp["is_i16"], inp["is_t8"],
+        inp["luma_ac"], inp["luma_dc"], l8, qp_y, inp["is_i16"], inp["is_t8"],
         inp["is_intra"], inp["ls4_y"], inp["ls8_y"], mb_h, mb_w,
     )
-    rcb, rcr = tr_k.chroma_residual_planes(
+    chroma_res = (tr_k.chroma_residual_planes_422 if cat == 2
+                  else tr_k.chroma_residual_planes)
+    rcb, rcr = chroma_res(
         inp["chroma_dc"], inp["chroma_ac"], inp["qp"], inp["is_intra"], inp["ls4_c"],
-        inp["qp_offsets"], mb_h, mb_w,
+        inp["qp_offsets"], mb_h, mb_w, bd=bd,
     )
     # both lists always evaluated, masked where unused
     slot, mv = inp["slot_cells"], inp["mv_cells"]
@@ -150,21 +167,22 @@ def _base_planes(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
     p1y = mc_k.luma_mc(ring_y, slot[1], mv[1], H, W, need_s2)
     w0, o0, w1, o1, lwd = (_rep(a, 4, 4) for a in luma_w(bi_cell))
     pred_y = mc_k.weighted_combine(p0y, p1y, _rep(use0_cell, 4, 4), _rep(use1_cell, 4, 4),
-                                   w0, o0, w1, o1, lwd)
-    inter_y = torch.clamp(pred_y + ry, 0, 255)
-    use0c, use1c = _rep(use0_cell, 2, 2), _rep(use1_cell, 2, 2)
-    p0cb, p0cr = mc_k.chroma_mc_pair(ring_c, slot[0], mv[0], Hc, Wc)
-    p1cb, p1cr = mc_k.chroma_mc_pair(ring_c, slot[1], mv[1], Hc, Wc)
+                                   w0, o0, w1, o1, lwd, mx)
+    inter_y = torch.clamp(pred_y + ry, 0, mx)
+    rv = ch_h // 4  # chroma rows per luma cell row
+    use0c, use1c = _rep(use0_cell, rv, 2), _rep(use1_cell, rv, 2)
+    p0cb, p0cr = mc_k.chroma_mc_pair(ring_c, slot[0], mv[0], Hc, Wc, cat)
+    p1cb, p1cr = mc_k.chroma_mc_pair(ring_c, slot[1], mv[1], Hc, Wc, cat)
     inter_c = []
     for comp, (p0, p1, rc) in enumerate(((p0cb, p1cb, rcb), (p0cr, p1cr, rcr))):
-        cw0, co0, cw1, co1, clwd = (_rep(a, 2, 2) for a in chroma_w(comp, bi_cell))
-        pred = mc_k.weighted_combine(p0, p1, use0c, use1c, cw0, co0, cw1, co1, clwd)
-        inter_c.append(torch.clamp(pred + rc, 0, 255))
+        cw0, co0, cw1, co1, clwd = (_rep(a, rv, 2) for a in chroma_w(comp, bi_cell))
+        pred = mc_k.weighted_combine(p0, p1, use0c, use1c, cw0, co0, cw1, co1, clwd, mx)
+        inter_c.append(torch.clamp(pred + rc, 0, mx))
 
     # base planes: inter pixels + PCM pixels, zeros where intra fills
     inter_mb = (~inp["is_intra"]).reshape(mb_h, mb_w)
     im_y = _rep(inter_mb, 16, 16)
-    im_c = _rep(inter_mb, 8, 8)
+    im_c = _rep(inter_mb, ch_h, 8)
     zero = torch.zeros((), dtype=_I32, device=dev)
     pcm = [inp[k] if has_pcm else zero for k in ("pcm_y", "pcm_cb", "pcm_cr")]
     base_y = torch.where(im_y, inter_y, pcm[0])
@@ -174,26 +192,28 @@ def _base_planes(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
 
 
 def _frame_core(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
-                has_intra: bool = True, need_s2: bool = True):
-    """The pixel path for one frame before deblocking: uint8 (y, cb, cr).
-    has_intra=False (typical P/B frames code no intra MB) skips the serial
-    intra kernels entirely."""
+                has_intra: bool = True, need_s2: bool = True, cat: int = 1, bd: int = 8):
+    """The pixel path for one frame before deblocking: (y, cb, cr) in the
+    sample dtype (uint8 at 8 bits, int16 above). has_intra=False (typical
+    P/B frames code no intra MB) skips the serial intra kernels entirely."""
     base_y, base_cb, base_cr, ry, rcb, rcr = _base_planes(
-        inp, mb_h, mb_w, has_l8, has_pcm, need_s2
+        inp, mb_h, mb_w, has_l8, has_pcm, need_s2, cat, bd
     )
+    mx = (1 << bd) - 1
     if has_intra:
         base_y, base_cb, base_cr = intra_frame(
             base_y, base_cb, base_cr, ry, rcb, rcr, inp["kind"], inp["modes4"],
             inp["i16mode"], inp["cmode"], inp["avl"], inp["avt"], inp["avtr"],
-            inp["avtl"], mb_h, mb_w,
+            inp["avtl"], mb_h, mb_w, 16 if cat == 2 else 8, 1 << (bd - 1), mx,
         )
-    u8 = torch.uint8
-    return base_y.to(u8), base_cb.to(u8), base_cr.to(u8)
+    sdt = sample_dtype(mx)
+    return base_y.to(sdt), base_cb.to(sdt), base_cr.to(sdt)
 
 
-def _deblock_core(planes, inp: dict, mb_h: int, mb_w: int):
+def _deblock_core(planes, inp: dict, mb_h: int, mb_w: int, cat: int = 1, bd: int = 8):
     """Edge-parameter derivation + the deblocking kernels. Picture identity
-    for bS is the ring slot (equal slot == same reference picture)."""
+    for bS is the ring slot (equal slot == same reference picture). The
+    thresholds take the raw QPY; alpha, beta and tC0 scale by bd_scale."""
     y, cb, cr = planes
     n = mb_h * mb_w
     prep = deblock_prep_device(
@@ -201,8 +221,10 @@ def _deblock_core(planes, inp: dict, mb_h: int, mb_w: int):
         inp["aoff"], inp["boff"], inp["nnz_grid"],
         torch.zeros((n, 2, 4), dtype=_I32, device=y.device),
         inp["mv_cells"], inp["qp_offsets"], mb_h, mb_w, slot_cells=inp["slot_cells"],
+        chroma_all_h_edges=cat == 2,
     )
-    return deblock_frame(y, cb, cr, prep, mb_h, mb_w)
+    return deblock_frame(y, cb, cr, prep, mb_h, mb_w, 16 if cat == 2 else 8,
+                         1 << (bd - 8), (1 << bd) - 1)
 
 
 def _densify_residuals(inp: dict, n: int, has_l8: bool):
@@ -268,26 +290,29 @@ def frame_step(wire: dict, ring_y: torch.Tensor, ring_c: torch.Tensor, dyn: dict
     """The whole per-frame device program: reconstruct -> deblock ->
     half-pel planes into ring slot `slot` (in place) -> packed output.
 
-    flags = (has_l8, has_pcm, apply_deblock, sparse, has_intra, need_s2).
-    ring_y: [R, 4, H+2*PAD, W+2*PAD] uint8 {G, b, h, j} stacks; ring_c:
-    [R, 2, Hc+2*PAD, Wc+2*PAD] uint8 padded Cb/Cr. Returns the packed
-    [H + H/2, W] uint8 plane."""
-    has_l8, has_pcm, apply_db, sparse, has_intra, need_s2 = flags
+    flags = (has_l8, has_pcm, apply_deblock, sparse, has_intra, need_s2,
+    cat, bd): cat is the ChromaArrayType the frame runs as (1, or 2 for
+    4:2:2), bd the bit depth. ring_y: [R, 4, H+2*PAD, W+2*PAD] {G, b, h, j}
+    stacks; ring_c: [R, 2, Hc+2*PAD, Wc+2*PAD] padded Cb/Cr (Hc = H/2, or H
+    for 4:2:2), both in the sample dtype (uint8 at 8 bits, int16 above).
+    Returns the packed [H + Hc, W] plane in the sample dtype."""
+    has_l8, has_pcm, apply_db, sparse, has_intra, need_s2, cat, bd = flags
     inp = _prepare_inp(wire, dyn, ring_y, ring_c, mb_h, mb_w, flags)
-    y, cb, cr = _frame_core(inp, mb_h, mb_w, has_l8, has_pcm, has_intra, need_s2)
+    y, cb, cr = _frame_core(inp, mb_h, mb_w, has_l8, has_pcm, has_intra, need_s2, cat, bd)
     if apply_db:
-        y, cb, cr = _deblock_core((y, cb, cr), inp, mb_h, mb_w)
-    ring_y[slot] = mc_k.half_pel_planes(y)
+        y, cb, cr = _deblock_core((y, cb, cr), inp, mb_h, mb_w, cat, bd)
+    ring_y[slot] = mc_k.half_pel_planes(y, (1 << bd) - 1)
     ring_c[slot, 0] = mc_k.chroma_pad(cb)
     ring_c[slot, 1] = mc_k.chroma_pad(cr)
     return torch.cat([y, torch.cat([cb, cr], dim=1)], dim=0)
 
 
 class _PackedFrame:
-    """One decoded frame as a single packed buffer [H + H/2, W] (Y on top;
-    Cb | Cr side by side below). On the GPU the device->host copy into
-    pinned memory is enqueued at dispatch behind `done` (frame computed)
-    and ends at `copied`; every read waits for `copied` first."""
+    """One decoded frame as a single packed buffer [H + Hc, W] (Y on top;
+    Cb | Cr side by side below; Hc = H/2, or H for 4:2:2). On the GPU the
+    device->host copy into pinned memory is enqueued at dispatch behind
+    `done` (frame computed) and ends at `copied`; every read waits for
+    `copied` first. int16 samples (above 8 bits) come out as uint16 planes."""
 
     def __init__(self, host: torch.Tensor, H: int, W: int,
                  metrics: DecodeMetrics | None, done=None, copied=None):
@@ -318,6 +343,8 @@ class _PackedFrame:
         if self._planes is None:
             self._wait(self._copied, "download")
             a = self._host.numpy()
+            if a.dtype == np.int16:
+                a = a.view(np.uint16)
             if self._metrics is not None:
                 self._metrics.count("bytes_down", a.nbytes)
             H, W = self._H, self._W
@@ -434,14 +461,15 @@ def _mb_avail_grids(ft: FrameTensors, pps: PPS):
     return nb(0, -1), nb(-1, 0), nb(-1, 1), nb(-1, -1)
 
 
-def _weight_tables(weight_ctx, ref_lists, poc, s_pad: int, r_w: int):
+def _weight_tables(weight_ctx, ref_lists, poc, s_pad: int, r_w: int, osh: int = 0):
     """Per-slice weighted-prediction tables for the device-side gather.
 
     Identity default everywhere: w=32, o=0, logWD=5, exact for unweighted
     uni (p*32+16)>>5 = p and default bi (32p0+32p1+32)>>6 = (p0+p1+1)>>1.
-    Explicit slices (7.3.3.2) fill per-(list, ref_idx) entries; implicit
-    slices (8.4.2.3.1) fill the pair-indexed bi tables from POC distances.
-    Only called for frames with at least one weighted slice."""
+    Explicit slices (7.3.3.2) fill per-(list, ref_idx) entries, their
+    offsets scaled by 1 << osh (osh = BitDepth - 8, spec 8.4.2.3.2);
+    implicit slices (8.4.2.3.1) fill the pair-indexed bi tables from POC
+    distances. Only called for frames with at least one weighted slice."""
     S, R = s_pad, r_w
     w_tab = np.full((S, 2, R), 32, np.int16)
     o_tab = np.zeros((S, 2, R), np.int16)
@@ -464,9 +492,9 @@ def _weight_tables(weight_ctx, ref_lists, poc, s_pad: int, r_w: int):
                     if ridx >= R:
                         break
                     w_tab[sid, lst, ridx] = e.luma_weight
-                    o_tab[sid, lst, ridx] = e.luma_offset
+                    o_tab[sid, lst, ridx] = e.luma_offset << osh
                     wc_tab[sid, lst, ridx] = e.chroma_weight
-                    oc_tab[sid, lst, ridx] = np.asarray(e.chroma_offset, np.int32)
+                    oc_tab[sid, lst, ridx] = np.asarray(e.chroma_offset, np.int32) << osh
             # explicit bi weights are separable per (list, ref_idx)
             pw0[sid] = w_tab[sid, 0, :, None]
             pw1[sid] = w_tab[sid, 1, None, :]
@@ -567,16 +595,18 @@ class GpuDecoder(Decoder):
     def __exit__(self, *exc):
         self.close()
 
+    @staticmethod
+    def _oracle_format(sps: SPS) -> bool:
+        """Formats the frame program does not run, which decode on the host
+        oracle as in the JAX package: mixed luma/chroma bit depths and
+        high-bit-depth 4:4:4."""
+        return (sps.bit_depth_chroma != sps.bit_depth_luma
+                or (sps.chroma_array_type == 3 and sps.bit_depth_luma > 8))
+
     def _submit_reconstruct(self, ft, sps, pps, slices, ref_lists, weight_ctx, poc):
-        if sps.chroma_array_type == 3:
+        if sps.chroma_array_type == 3 and not self._oracle_format(sps):
             raise NotImplementedError(
-                "4:4:4 is not on the GPU path yet (ROADMAP.md, Queue A item 2)"
-            )
-        if (sps.chroma_array_type != 1 or sps.bit_depth_luma != 8
-                or sps.bit_depth_chroma != 8):
-            raise NotImplementedError(
-                "4:2:2, monochrome and high bit depth are not on the GPU path yet "
-                "(ROADMAP.md, Queue A item 1)"
+                "8-bit 4:4:4 is not on the GPU path yet (ROADMAP.md, Queue A item 2)"
             )
         if self._recon_exec is None:
             raise RuntimeError("GpuDecoder: decoding after close()")
@@ -605,16 +635,24 @@ class GpuDecoder(Decoder):
             self._recon_pending.popleft().result()
 
     @staticmethod
-    def ring_bytes(sps: SPS) -> int:
-        """Device bytes of the DPB rings this decoder allocates for the
-        stream geometry (_ensure_ring: uint8 {G, b, h, j} luma stacks and
-        padded Cb/Cr planes, max_num_ref_frames + 1 slots)."""
+    def _ring_geom_of(sps: SPS):
+        """(slots, H, W, chroma height, sample dtype) of the DPB rings."""
         n_refs = max(1, sps.max_num_ref_frames + 1)
         H, W = sps.frame_height_in_mbs * 16, sps.pic_width_in_mbs * 16
+        Hc = H if sps.chroma_array_type == 2 else H // 2
+        return n_refs, H, W, Hc, sample_dtype((1 << sps.bit_depth_luma) - 1)
+
+    @staticmethod
+    def ring_bytes(sps: SPS) -> int:
+        """Device bytes of the DPB rings this decoder allocates for the
+        stream geometry (_ensure_ring: {G, b, h, j} luma stacks and padded
+        Cb/Cr planes, max_num_ref_frames + 1 slots; 4:2:2 chroma is full
+        height, and samples above 8 bits take 2 bytes)."""
+        n_refs, H, W, Hc, dt = GpuDecoder._ring_geom_of(sps)
         P = mc_k.PAD
         luma = n_refs * 4 * (H + 2 * P) * (W + 2 * P)
-        chroma = n_refs * 2 * (H // 2 + 2 * P) * (W // 2 + 2 * P)
-        return luma + chroma
+        chroma = n_refs * 2 * (Hc + 2 * P) * (W // 2 + 2 * P)
+        return (luma + chroma) * (1 if dt == torch.uint8 else 2)
 
     def _ring_over_budget(self, sps: SPS) -> bool:
         """True when the DPB rings would exceed RING_BUDGET_MB on a CPU
@@ -641,15 +679,13 @@ class GpuDecoder(Decoder):
         return over
 
     def _ensure_ring(self, sps: SPS) -> int:
-        n_refs = max(1, sps.max_num_ref_frames + 1)
-        H, W = sps.frame_height_in_mbs * 16, sps.pic_width_in_mbs * 16
-        geom = (n_refs, H, W)
+        geom = self._ring_geom_of(sps)
+        n_refs, H, W, Hc, dt = geom
         if self._ring is None or self._ring_geom != geom:
             P = mc_k.PAD
-            u8 = torch.uint8
             self._ring = (
-                torch.zeros((n_refs, 4, H + 2 * P, W + 2 * P), dtype=u8, device=self.device),
-                torch.zeros((n_refs, 2, H // 2 + 2 * P, W // 2 + 2 * P), dtype=u8,
+                torch.zeros((n_refs, 4, H + 2 * P, W + 2 * P), dtype=dt, device=self.device),
+                torch.zeros((n_refs, 2, Hc + 2 * P, W // 2 + 2 * P), dtype=dt,
                             device=self.device),
             )
             self._ring_slots = {}
@@ -663,9 +699,11 @@ class GpuDecoder(Decoder):
         used = set(self._ring_slots.values())
         return next(i for i in range(n_refs) if i not in used)
 
-    def _insert_host_refs(self, pictures: list[Picture], n_refs: int, live: set):
+    def _insert_host_refs(self, pictures: list[Picture], n_refs: int, live: set,
+                          mx: int):
         """Upload reference pictures that lack a ring slot (pictures decoded
-        by the host oracle, e.g. lossless transform-bypass frames)."""
+        by the host oracle, e.g. lossless transform-bypass frames; uint16
+        planes above 8 bits, held as int16 on the device)."""
         ring_y, ring_c = self._ring
         for p in pictures[:n_refs]:
             if p.uid in self._ring_slots:
@@ -673,10 +711,12 @@ class GpuDecoder(Decoder):
             slot = self._alloc_slot(live, n_refs)
 
             def dev(a):
-                return torch.as_tensor(np.ascontiguousarray(np.asarray(a)),
-                                       device=self.device)
+                a = np.ascontiguousarray(np.asarray(a))
+                if a.dtype == np.uint16:
+                    a = a.view(np.int16)
+                return torch.as_tensor(a, device=self.device)
 
-            ring_y[slot] = mc_k.half_pel_planes(dev(p.y))
+            ring_y[slot] = mc_k.half_pel_planes(dev(p.y), mx)
             ring_c[slot, 0] = mc_k.chroma_pad(dev(p.cb))
             ring_c[slot, 1] = mc_k.chroma_pad(dev(p.cr))
             self._ring_slots[p.uid] = slot
@@ -723,9 +763,12 @@ class GpuDecoder(Decoder):
                      cur_uid: int | None = None):
         if cur_uid is None:
             cur_uid = self.uid_counter
-        over_budget = self._ring_over_budget(sps)
+        bd = sps.bit_depth_luma
+        oracle_format = self._oracle_format(sps)
+        over_budget = not oracle_format and self._ring_over_budget(sps)
+        # QP'Y = 0 selects the transform bypass (QPY = -QpBdOffsetY above 8 bits)
         lossless = sps.qpprime_y_zero_transform_bypass_flag and bool(
-            (ft.qp.astype(np.int32) == 0).any()
+            (ft.qp.astype(np.int32) + 6 * (bd - 8) == 0).any()
         )
         if (
             slices[0][0].field_pic_flag
@@ -733,11 +776,13 @@ class GpuDecoder(Decoder):
             or any(h.is_sp or h.is_si for h, *_ in slices)
             or over_budget
             or lossless
+            or oracle_format
         ):
             # PAFF field pictures, MBAFF pictures, SP/SI slices (8.6
-            # transform-domain requant) and lossless transform-bypass MBs
-            # (8.5.15) run on the numpy oracle. Reference pictures may hold
-            # lazy device planes: materialize them once for the oracle.
+            # transform-domain requant), lossless transform-bypass MBs
+            # (8.5.15), mixed bit depths and high-bit-depth 4:4:4 run on the
+            # numpy oracle. Reference pictures may hold lazy device planes:
+            # materialize them once for the oracle.
             for l0, l1 in ref_lists:
                 for p in l0 + l1:
                     if not isinstance(p.y, np.ndarray):
@@ -750,6 +795,8 @@ class GpuDecoder(Decoder):
         H, W = mb_h * 16, mb_w * 16
         n = ft.n_mbs
         hdr0 = slices[0][0]
+        cf2 = sps.chroma_array_type == 2
+        mx = (1 << bd) - 1
         n_refs = self._ensure_ring(sps)
         # ---- unique reference pictures -> ring slots
         uid_to_pic = {}
@@ -758,7 +805,7 @@ class GpuDecoder(Decoder):
                 uid_to_pic.setdefault(p.uid, p)
         pics = list(uid_to_pic.values())
         live = {p.uid for p in pics[:n_refs]}
-        self._insert_host_refs(pics, n_refs, live)
+        self._insert_host_refs(pics, n_refs, live, mx)
         uid_slot = {u: s for u, s in self._ring_slots.items() if u in live}
         # slot for the current frame's planes (a free slot always exists:
         # the ring has max_num_ref_frames + 1 slots)
@@ -786,7 +833,7 @@ class GpuDecoder(Decoder):
             )
             while self._r_w < max_list:
                 self._r_w *= 2
-            wt = _weight_tables(weight_ctx, ref_lists, poc, s_pad, self._r_w)
+            wt = _weight_tables(weight_ctx, ref_lists, poc, s_pad, self._r_w, osh=bd - 8)
 
         # ---- intra metadata
         kind = np.zeros(n, np.int32)
@@ -795,17 +842,23 @@ class GpuDecoder(Decoder):
         kind[ft.mb_class == MB_I_16X16] = K_I16
         avl, avt, avtr, avtl = _mb_avail_grids(ft, pps)
 
-        # ---- PCM planes (only built and shipped when the frame has any)
+        # ---- PCM planes (only built and shipped when the frame has any):
+        # uint16 above 8 bits, 8x16 chroma per MB for 4:2:2, and mid-gray
+        # chroma for monochrome (which codes none)
         has_pcm = bool(ft.pcm_samples)
         if has_pcm:
-            pcm_y = np.zeros((H, W), np.uint8)
-            pcm_cb = np.zeros((H // 2, W // 2), np.uint8)
-            pcm_cr = np.zeros((H // 2, W // 2), np.uint8)
+            pdt = np.uint8 if bd == 8 else np.uint16
+            chh = 16 if cf2 else 8
+            mono = sps.chroma_array_type == 0
+            pcm_y = np.zeros((H, W), pdt)
+            pcm_cb = np.zeros((mb_h * chh, W // 2), pdt)
+            pcm_cr = np.zeros((mb_h * chh, W // 2), pdt)
             for addr, (py, pcb, pcr) in ft.pcm_samples.items():
                 mbx, mby = ft.mb_xy(addr)
                 pcm_y[mby * 16 : mby * 16 + 16, mbx * 16 : mbx * 16 + 16] = py
-                pcm_cb[mby * 8 : mby * 8 + 8, mbx * 8 : mbx * 8 + 8] = pcb
-                pcm_cr[mby * 8 : mby * 8 + 8, mbx * 8 : mbx * 8 + 8] = pcr
+                cy, cx = slice(mby * chh, (mby + 1) * chh), slice(mbx * 8, mbx * 8 + 8)
+                pcm_cb[cy, cx] = 1 << (bd - 1) if mono else pcb
+                pcm_cr[cy, cx] = 1 << (bd - 1) if mono else pcr
 
         has_l8 = bool(pps.transform_8x8_mode_flag and ft.luma8_ac is not None)
         # ---- sparse residual wire: typical inter frames code ~1-5% of the
@@ -819,10 +872,10 @@ class GpuDecoder(Decoder):
         }
         if has_l8:
             sp["l8"] = (ft.luma8_ac.reshape(-1, 64), n // 4)
-        masks = _coded_block_masks(ft, has_l8)
-        sparse = True
+        sparse = not cf2  # 4:2:2 ships its residuals dense, as in the JAX package
+        masks = _coded_block_masks(ft, has_l8) if sparse else {}
         sp_idx = {}
-        for key, (flat, cap) in sp.items():
+        for key, (flat, cap) in (sp.items() if sparse else ()):
             idx = np.flatnonzero(masks[key]).astype(np.int32)
             if len(idx) > cap:
                 sparse = False
@@ -915,7 +968,8 @@ class GpuDecoder(Decoder):
         has_intra = bool(kind.any())
         # all-even MVs make the Table 8-12 second sample dead
         need_s2 = bool(((ft.mv & 1) != 0).any())
-        flags = (has_l8, has_pcm, self.apply_deblock, sparse, has_intra, need_s2)
+        flags = (has_l8, has_pcm, self.apply_deblock, sparse, has_intra, need_s2,
+                 2 if cf2 else 1, bd)
         ring_y, ring_c = self._ring
         if m is not None:
             with m.timer("dispatch"):
@@ -927,7 +981,7 @@ class GpuDecoder(Decoder):
             # first plane access waits for its event
             done = torch.cuda.Event()
             done.record()
-            host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
             copied = torch.cuda.Event()
             copied.record()

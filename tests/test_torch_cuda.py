@@ -7,7 +7,9 @@ These need a CUDA device and nvcc: they carry the `cuda` marker and, without
 a card, skip (decided inside the fixture, never at import). On a machine
 with a card:
 
-    python -m pytest -m cuda tests/ -q
+    python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+(named alone: the other test files import JAX).
 """
 
 import numpy as np
@@ -43,18 +45,20 @@ def _prep_inputs(seed, mb_h=4, mb_w=4):
     )
 
 
-def _intra_inputs(seed, mb_h, mb_w, all_intra=False):
+def _intra_inputs(seed, mb_h, mb_w, all_intra=False, ch_h=8, bd=8):
     """Every MB kind, every mode and random availability combinations; with
     all_intra, every MB intra and every neighbour inside the picture
-    available (so every MB of the row kernels waits on the row above)."""
+    available (so every MB of the row kernels waits on the row above).
+    Samples span 0 .. (1 << bd) - 1; chroma planes are mb_h * ch_h high."""
     rng = np.random.default_rng(seed)
     n = mb_h * mb_w
     H, W = 16 * mb_h, 16 * mb_w
+    Hc, s = ch_h * mb_h, bd - 8
     kind = rng.integers(1 if all_intra else 0, 4, n).astype(np.int32)
-    base_y = rng.integers(0, 256, (H, W)).astype(np.int32)
-    base_c = rng.integers(0, 256, (2, H // 2, W // 2)).astype(np.int32)
-    ry = rng.integers(-40, 40, (H, W)).astype(np.int32)
-    rc = rng.integers(-40, 40, (2, H // 2, W // 2)).astype(np.int32)
+    base_y = rng.integers(0, 256 << s, (H, W)).astype(np.int32)
+    base_c = rng.integers(0, 256 << s, (2, Hc, W // 2)).astype(np.int32)
+    ry = rng.integers(-40 << s, 40 << s, (H, W)).astype(np.int32)
+    rc = rng.integers(-40 << s, 40 << s, (2, Hc, W // 2)).astype(np.int32)
     modes4 = rng.integers(0, 9, (n, 16)).astype(np.int32)
     i16 = rng.integers(0, 4, n).astype(np.int32)
     cm = rng.integers(0, 4, n).astype(np.int32)
@@ -89,17 +93,30 @@ def _assert_launched(before):
         assert _build.device_kernels[k] == kernels + 1
 
 
-def _intra_args(cuda, seed, mb_h, mb_w, all_intra=False):
+# (ChromaArrayType, bit depth) of the kernels' instantiations
+FORMATS = [(1, 8), (1, 10), (2, 10)]
+FORMAT_IDS = ["420_8", "420_10", "422_10"]
+
+
+def _fmt(cat, bd):
+    """The kernels' format arguments: chroma MB height, DC fallback, Clip1
+    ceiling and deblock threshold scale."""
+    return dict(ch_h=16 if cat == 2 else 8, mid=1 << (bd - 1), mx=(1 << bd) - 1,
+                bd_scale=1 << (bd - 8))
+
+
+def _intra_args(cuda, seed, mb_h, mb_w, all_intra=False, cat=1, bd=8):
     return [torch.as_tensor(a, device=cuda)
-            for a in _intra_inputs(seed, mb_h, mb_w, all_intra)]
+            for a in _intra_inputs(seed, mb_h, mb_w, all_intra, 16 if cat == 2 else 8, bd)]
 
 
-def _deblock_args(cuda, seed, mb_h, mb_w, edges="prep"):
-    """Planes and edge parameters. edges: "prep" keeps the derived bS;
-    "top" also sets bS 1..4 on every MB's chroma top edge (luma edge 0,
-    below the first MB row), so every MB of the chroma kernel waits;
-    "odd" leaves bS > 0 only on luma edges 1 and 3, which carry no chroma
-    edge, so no MB of the chroma kernel has work."""
+def _deblock_args(cuda, seed, mb_h, mb_w, edges="prep", cat=1, bd=8):
+    """Planes (uint8 at 8 bits, int16 above) and edge parameters. edges:
+    "prep" keeps the derived bS; "top" also sets bS 1..4 on every MB's
+    chroma top edge (luma edge 0, below the first MB row), so every MB of
+    the chroma kernel waits; "odd" leaves bS > 0 only on luma edges 1 and 3,
+    which carry no 4:2:0 chroma edge (so no MB of the 4:2:0 chroma kernel
+    has work) but do carry the 4:2:2 chroma edges at chroma rows 4 and 12."""
     from h264decode_tpu_torch.kernels.deblock_prep_dev import deblock_prep_device
 
     p = _prep_inputs(seed, mb_h, mb_w)
@@ -107,61 +124,81 @@ def _deblock_args(cuda, seed, mb_h, mb_w, edges="prep"):
             "ref_pic", "mv")
     T = lambda a: torch.as_tensor(np.asarray(a), device=cuda)  # noqa: E731
     prep = deblock_prep_device(*(T(p[k]) for k in keys), p["offs"], mb_h, mb_w,
-                               slot_cells=T(p["slot"]))
+                               slot_cells=T(p["slot"]), chroma_all_h_edges=cat == 2)
     rng = np.random.default_rng(seed)
     H4, W4 = 4 * mb_h, 4 * mb_w
+    hkeys = ("bs_h", "bs_hc") if cat == 2 else ("bs_h",)
     if edges == "top":
-        bs_h = prep["bs_h"].cpu().numpy()
-        bs_h[4:H4:4] = rng.integers(1, 5, (mb_h - 1, W4))
-        prep["bs_h"] = T(bs_h)
+        for k in hkeys:
+            bs_h = prep[k].cpu().numpy()
+            bs_h[4:H4:4] = rng.integers(1, 5, (mb_h - 1, W4))
+            prep[k] = T(bs_h)
     elif edges == "odd":
         odd = rng.integers(1, 5, (2, H4, W4)).astype(np.int32)
         odd[0][:, 0::2] = 0  # vertical: cell columns 1 and 3 of each MB
         odd[1][0::2] = 0     # horizontal: cell rows 1 and 3
-        prep["bs_v"], prep["bs_h"] = T(odd[0]), T(odd[1])
-    y = T(np.clip(128 + rng.integers(-12, 13, (16 * mb_h, 16 * mb_w)), 0, 255)
-          .astype(np.uint8))
-    cb, cr = (T(np.clip(128 + rng.integers(-10, 11, (8 * mb_h, 8 * mb_w)), 0, 255)
-                .astype(np.uint8)) for _ in range(2))
+        prep["bs_v"] = T(odd[0])
+        for k in hkeys:
+            prep[k] = T(odd[1])
+    sh, mx = bd - 8, (1 << bd) - 1
+    dt = np.uint8 if bd == 8 else np.int16
+    ch_h = 16 if cat == 2 else 8
+    y = T(np.clip((128 << sh) + rng.integers(-12 << sh, (12 << sh) + 1,
+                                             (16 * mb_h, 16 * mb_w)), 0, mx).astype(dt))
+    cb, cr = (T(np.clip((128 << sh) + rng.integers(-10 << sh, (10 << sh) + 1,
+                                                   (ch_h * mb_h, 8 * mb_w)), 0, mx).astype(dt))
+              for _ in range(2))
     return y, cb, cr, prep
 
 
+@pytest.mark.parametrize("cat,bd", FORMATS, ids=FORMAT_IDS)
 @pytest.mark.parametrize("all_intra", [False, True])
 @pytest.mark.parametrize("mb_h,mb_w", SHAPES)
-def test_intra_kernels_match_plain(cuda, mb_h, mb_w, all_intra):
-    args = _intra_args(cuda, 31 + mb_h + mb_w, mb_h, mb_w, all_intra)
-    plain = t_intra.intra_wavefront(*args, mb_h, mb_w)
+def test_intra_kernels_match_plain(cuda, mb_h, mb_w, all_intra, cat, bd):
+    args = _intra_args(cuda, 31 + mb_h + mb_w, mb_h, mb_w, all_intra, cat, bd)
+    f = _fmt(cat, bd)
+    fmt = dict(ch_h=f["ch_h"], mid=f["mid"], mx=f["mx"])
+    plain = t_intra.intra_wavefront(*args, mb_h, mb_w, **fmt)
     before = _launch_counts(("intra_luma", "intra_chroma"))
-    out = intra_cuda.intra_frame(*args, mb_h, mb_w)
+    out = intra_cuda.intra_frame(*args, mb_h, mb_w, **fmt)
     torch.cuda.synchronize()
     for a, b in zip(plain, out):
         assert torch.equal(a, b)
     _assert_launched(before)
 
 
+@pytest.mark.parametrize("cat,bd", FORMATS, ids=FORMAT_IDS)
 @pytest.mark.parametrize("edges", ["prep", "top", "odd"])
 @pytest.mark.parametrize("mb_h,mb_w", SHAPES)
-def test_deblock_kernels_match_plain(cuda, mb_h, mb_w, edges):
-    y, cb, cr, prep = _deblock_args(cuda, 41 + mb_h + mb_w, mb_h, mb_w, edges)
-    plain = t_db.deblock_frame(y, cb, cr, prep, mb_h, mb_w)
+def test_deblock_kernels_match_plain(cuda, mb_h, mb_w, edges, cat, bd):
+    y, cb, cr, prep = _deblock_args(cuda, 41 + mb_h + mb_w, mb_h, mb_w, edges, cat, bd)
+    f = _fmt(cat, bd)
+    fmt = dict(ch_h=f["ch_h"], bd_scale=f["bd_scale"], mx=f["mx"])
+    plain = t_db.deblock_frame(y, cb, cr, prep, mb_h, mb_w, **fmt)
     before = _launch_counts(("deblock_luma", "deblock_chroma"))
-    out = deblock_cuda.deblock_frame(y, cb, cr, prep, mb_h, mb_w)
+    out = deblock_cuda.deblock_frame(y, cb, cr, prep, mb_h, mb_w, **fmt)
     torch.cuda.synchronize()
     for a, b in zip(plain, out):
+        assert a.dtype == b.dtype
         assert torch.equal(a, b)
-    if edges == "odd":  # luma edges 1 and 3 alone filter no chroma sample
+    if edges == "odd" and cat == 1:  # luma edges 1 and 3 alone filter no 4:2:0 chroma
         assert torch.equal(out[1], cb) and torch.equal(out[2], cr)
+    if edges == "odd" and cat == 2 and mb_h * mb_w > 1:  # but they do filter 4:2:2 chroma
+        assert not torch.equal(out[1], cb)
     _assert_launched(before)
 
 
+@pytest.mark.parametrize("cat,bd", FORMATS, ids=FORMAT_IDS)
 @pytest.mark.parametrize("mb_h,mb_w", [(9, 11), (140, 3)])
-def test_kernels_repeat_identically(cuda, mb_h, mb_w):
+def test_kernels_repeat_identically(cuda, mb_h, mb_w, cat, bd):
     """A race shows as outputs that differ between runs: run every kernel 10
     times on one input and require the same output each time."""
-    args = _intra_args(cuda, 51, mb_h, mb_w)
-    y, cb, cr, prep = _deblock_args(cuda, 52, mb_h, mb_w)
-    runs = [(intra_cuda.intra_frame(*args, mb_h, mb_w),
-             deblock_cuda.deblock_frame(y, cb, cr, prep, mb_h, mb_w)) for _ in range(10)]
+    args = _intra_args(cuda, 51, mb_h, mb_w, cat=cat, bd=bd)
+    y, cb, cr, prep = _deblock_args(cuda, 52, mb_h, mb_w, cat=cat, bd=bd)
+    f = _fmt(cat, bd)
+    runs = [(intra_cuda.intra_frame(*args, mb_h, mb_w, f["ch_h"], f["mid"], f["mx"]),
+             deblock_cuda.deblock_frame(y, cb, cr, prep, mb_h, mb_w, f["ch_h"], f["bd_scale"],
+                                        f["mx"])) for _ in range(10)]
     torch.cuda.synchronize()
     for intra_out, db_out in runs[1:]:
         for a, b in zip(runs[0][0] + runs[0][1], intra_out + db_out):
@@ -174,10 +211,39 @@ def test_wrappers_refuse_bad_tensors(cuda):
         intra_cuda.intra_luma(y, y, y, 4, 4)
     with pytest.raises(ValueError, match="uint8"):
         deblock_cuda.deblock_luma(y, {}, 4, 4)
-    # the deblock kernels move sample rows 16 (luma) and 8 (chroma) bytes at a time
+    # the deblock kernels move sample rows 16 (luma) and 8 (chroma) samples
+    # at a time: 16 and 8 bytes at 8 bits
     off = torch.zeros(64 * 64 + 1, dtype=torch.uint8, device=cuda)[1:].view(64, 64)
     with pytest.raises(ValueError, match="16-byte"):
         deblock_cuda.deblock_luma(off, {}, 4, 4)
     offc = torch.zeros(32 * 32 + 1, dtype=torch.uint8, device=cuda)[1:].view(32, 32)
     with pytest.raises(ValueError, match="8-byte"):
         deblock_cuda.deblock_chroma(offc, offc, {}, 4, 4)
+    # ... and 32 and 16 bytes at int16 (above 8 bits)
+    i16 = dict(bd_scale=4, mx=1023)
+    with pytest.raises(ValueError, match="int16"):
+        deblock_cuda.deblock_luma(torch.zeros((64, 64), dtype=torch.uint8, device=cuda), {},
+                                  4, 4, **i16)
+    with pytest.raises(ValueError, match="uint8"):
+        deblock_cuda.deblock_luma(torch.zeros((64, 64), dtype=torch.int16, device=cuda), {},
+                                  4, 4)
+    off16 = torch.zeros(64 * 64 + 8, dtype=torch.int16, device=cuda)[8:].view(64, 64)
+    with pytest.raises(ValueError, match="32-byte"):
+        deblock_cuda.deblock_luma(off16, {}, 4, 4, **i16)
+    offc16 = torch.zeros(64 * 32 + 4, dtype=torch.int16, device=cuda)[4:].view(64, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        deblock_cuda.deblock_chroma(offc16, offc16, {}, 4, 4, ch_h=16, **i16)
+    # formats the kernels do not take
+    with pytest.raises(ValueError, match="bit depth"):
+        deblock_cuda.deblock_luma(off16, {}, 4, 4, bd_scale=2, mx=1023)
+    with pytest.raises(ValueError, match="chroma MB height"):
+        deblock_cuda.deblock_chroma(offc16, offc16, {}, 4, 4, ch_h=12, **i16)
+    z = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bit depth"):
+        intra_cuda.intra_luma(z, z, z, 4, 4, mid=512, mx=1000)
+    with pytest.raises(ValueError, match="chroma MB height"):
+        intra_cuda.intra_chroma(z, z, z, z, z, 4, 4, ch_h=4)
+    # a 4:2:0-shaped chroma plane given as 4:2:2
+    zc = torch.zeros((32, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=r"\(64, 32\)"):
+        intra_cuda.intra_chroma(zc, zc, zc, zc, z, 4, 4, ch_h=16)

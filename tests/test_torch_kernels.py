@@ -47,13 +47,24 @@ def _scaling(rng):
             np.stack([np.stack([l4(), l4()]), np.stack([l4(), l4()])]))
 
 
-@pytest.mark.parametrize("qp_mode", ["zero", "max", "random"])
-def test_transform_matches_jax(qp_mode):
-    rng = np.random.default_rng({"zero": 1, "max": 2, "random": 3}[qp_mode])
+# (qp mode, ChromaArrayType, bit depth): "zero" is the lowest QP, where
+# QP'Y = 0 (QPY = -QpBdOffsetY at high bit depth). The 4:2:0 8-bit cases keep
+# the qp mode alone as their id.
+TRANSFORM_CASES = [(m, cat, bd) for cat, bd in ((1, 8), (1, 10), (2, 10)) for m in
+                   ("zero", "max", "random")] + [("random", 2, 8)]
+
+
+@pytest.mark.parametrize("qp_mode,cat,bd", TRANSFORM_CASES,
+                         ids=[m if (c, b) == (1, 8) else f"{m}-{c}-{b}"
+                              for m, c, b in TRANSFORM_CASES])
+def test_transform_matches_jax(qp_mode, cat, bd):
+    seed = {"zero": 1, "max": 2, "random": 3}[qp_mode] + 10 * (cat - 1) + (bd - 8)
+    rng = np.random.default_rng(seed)
     mb_h, mb_w = 4, 4
     n = mb_h * mb_w
-    qp = {"zero": np.zeros(n), "max": np.full(n, 51),
-          "random": rng.integers(0, 52, n)}[qp_mode].astype(np.int32)
+    off = 6 * (bd - 8)
+    qp = {"zero": np.full(n, -off), "max": np.full(n, 51),
+          "random": rng.integers(-off, 52, n)}[qp_mode].astype(np.int32)
     luma_ac = rng.integers(-40, 40, (n, 16, 16)).astype(np.int32)
     luma_dc = rng.integers(-40, 40, (n, 16)).astype(np.int32)
     luma8 = rng.integers(-40, 40, (n, 4, 64)).astype(np.int32)
@@ -61,29 +72,36 @@ def test_transform_matches_jax(qp_mode):
     is_t8 = (rng.random(n) < 0.4) & ~is_i16
     intra = rng.random(n) < 0.5
     ls4, ls8, ls4c = _scaling(rng)
+    qpy = qp + off  # QP'Y, what luma dequant consumes
     ja = j_tr.luma_residual_plane(
         jnp.asarray(luma_ac), jnp.asarray(luma_dc), jnp.asarray(luma8),
-        jnp.asarray(qp), jnp.asarray(is_i16), jnp.asarray(is_t8), jnp.asarray(intra),
+        jnp.asarray(qpy), jnp.asarray(is_i16), jnp.asarray(is_t8), jnp.asarray(intra),
         jnp.asarray(ls4), jnp.asarray(ls8), mb_h, mb_w)
-    to = t_tr.luma_residual_plane(T(luma_ac), T(luma_dc), T(luma8), T(qp), T(is_i16),
+    to = t_tr.luma_residual_plane(T(luma_ac), T(luma_dc), T(luma8), T(qpy), T(is_i16),
                                   T(is_t8), T(intra), T(ls4), T(ls8), mb_h, mb_w)
     eq(ja, to)
-    cdc = rng.integers(-60, 60, (n, 2, 4)).astype(np.int32)
-    cac = rng.integers(-40, 40, (n, 2, 4, 16)).astype(np.int32)
+    nb = 8 if cat == 2 else 4  # chroma 4x4 blocks per MB component
+    cdc = rng.integers(-60, 60, (n, 2, nb)).astype(np.int32)
+    cac = rng.integers(-40, 40, (n, 2, nb, 16)).astype(np.int32)
     offs = (int(rng.integers(-12, 13)), int(rng.integers(-12, 13)))
-    jc = j_tr.chroma_residual_planes(jnp.asarray(cdc), jnp.asarray(cac), jnp.asarray(qp),
-                                     jnp.asarray(intra), jnp.asarray(ls4c), offs, mb_h, mb_w)
-    tc = t_tr.chroma_residual_planes(T(cdc), T(cac), T(qp), T(intra), T(ls4c), offs,
-                                     mb_h, mb_w)
+    j_fn = j_tr.chroma_residual_planes_422 if cat == 2 else j_tr.chroma_residual_planes
+    t_fn = t_tr.chroma_residual_planes_422 if cat == 2 else t_tr.chroma_residual_planes
+    jc = j_fn(jnp.asarray(cdc), jnp.asarray(cac), jnp.asarray(qp), jnp.asarray(intra),
+              jnp.asarray(ls4c), offs, mb_h, mb_w, bd=bd)
+    tc = t_fn(T(cdc), T(cac), T(qp), T(intra), T(ls4c), offs, mb_h, mb_w, bd=bd)
+    assert tc[0].shape == (mb_h * 4 * nb // 2, mb_w * 8)
     eq(jc[0], tc[0])
     eq(jc[1], tc[1])
 
 
-def _mc_inputs(seed, H=64, W=64, R=3, far=False, even=False):
+def _mc_inputs(seed, H=64, W=64, R=3, far=False, even=False, cat=1, bd=8):
     rng = np.random.default_rng(seed)
-    refs = [rng.integers(0, 256, (H, W)).astype(np.uint8) for _ in range(R)]
-    crefs = [(rng.integers(0, 256, (H // 2, W // 2)).astype(np.uint8),
-              rng.integers(0, 256, (H // 2, W // 2)).astype(np.uint8)) for _ in range(R)]
+    sdt = np.uint8 if bd == 8 else np.uint16
+    top = 1 << bd
+    Hc = H if cat == 2 else H // 2
+    refs = [rng.integers(0, top, (H, W)).astype(sdt) for _ in range(R)]
+    crefs = [(rng.integers(0, top, (Hc, W // 2)).astype(sdt),
+              rng.integers(0, top, (Hc, W // 2)).astype(sdt)) for _ in range(R)]
     H4, W4 = H // 4, W // 4
     lim = 4 * 3 * max(H, W) if far else 64
     mv = rng.integers(-lim, lim, (2, H4, W4, 2)).astype(np.int32)
@@ -93,32 +111,66 @@ def _mc_inputs(seed, H=64, W=64, R=3, far=False, even=False):
     return refs, crefs, mv, slot
 
 
-@pytest.mark.parametrize("far,even", [(False, False), (True, False), (True, True)])
-def test_mc_matches_jax(far, even):
-    H = W = 64
-    refs, crefs, mv, slot = _mc_inputs(11 + far + 2 * even, H, W, far=far, even=even)
-    # JAX ring: pair-packed layouts; port ring: unpacked via convert.ring_from_jax
-    ring_y = np.stack([np.asarray(j_mc.pack_pair8(j_mc.half_pel_planes(jnp.asarray(r))))
+def S(a):
+    """A sample plane as the port holds it: uint8, or int16 above 8 bits."""
+    a = np.asarray(a)
+    return T(a.astype(np.int16) if a.dtype == np.uint16 else a)
+
+
+def _jax_rings(refs, crefs, bd):
+    """The JAX package's pair-packed DPB rings of these pictures (numpy):
+    (luma, chroma) at 8 bits, (luma, Cb, Cr) above."""
+    if bd == 8:
+        ring_y = np.stack([np.asarray(j_mc.pack_pair8(j_mc.half_pel_planes(jnp.asarray(r))))
+                           for r in refs])
+        ring_c = np.stack([
+            np.asarray(j_mc.pack_pair16(
+                j_mc.chroma_pad(jnp.asarray(cb)).astype(jnp.uint16)
+                | (j_mc.chroma_pad(jnp.asarray(cr)).astype(jnp.uint16) << 8)))
+            for cb, cr in crefs])
+        return ring_y, ring_c
+    mx = (1 << bd) - 1
+    ring_y = np.stack([np.asarray(j_mc.pack_pair16(j_mc.half_pel_planes(jnp.asarray(r), mx)))
                        for r in refs])
-    ring_c = np.stack([
-        np.asarray(j_mc.pack_pair16(
-            j_mc.chroma_pad(jnp.asarray(cb)).astype(jnp.uint16)
-            | (j_mc.chroma_pad(jnp.asarray(cr)).astype(jnp.uint16) << 8)))
-        for cb, cr in crefs])
-    t_ring_y, t_ring_c = convert.ring_from_jax(ring_y, ring_c)
+    rings_c = [np.stack([np.asarray(j_mc.pack_pair16(
+        j_mc.chroma_pad(jnp.asarray(c[k])).astype(jnp.uint16))) for c in crefs])
+        for k in range(2)]
+    return ring_y, rings_c[0], rings_c[1]
+
+
+# (far, even, ChromaArrayType, bit depth); the 4:2:0 8-bit cases keep their ids
+MC_CASES = [(False, False, 1, 8), (True, False, 1, 8), (True, True, 1, 8),
+            (False, False, 2, 8), (True, False, 1, 10), (True, False, 2, 10)]
+
+
+@pytest.mark.parametrize("far,even,cat,bd", MC_CASES,
+                         ids=[f"{f}-{e}" + ("" if (c, b) == (1, 8) else f"-{c}-{b}")
+                              for f, e, c, b in MC_CASES])
+def test_mc_matches_jax(far, even, cat, bd):
+    H = W = 64
+    Hc = H if cat == 2 else H // 2
+    mx = (1 << bd) - 1
+    seed = 11 + far + 2 * even + 4 * (cat - 1) + (bd - 8)
+    refs, crefs, mv, slot = _mc_inputs(seed, H, W, far=far, even=even, cat=cat, bd=bd)
+    # JAX ring: pair-packed layouts; port ring: unpacked via convert.ring_from_jax
+    jrings = _jax_rings(refs, crefs, bd)
+    t_ring_y, t_ring_c = convert.ring_from_jax(*jrings)
     # the unpacked ring is exactly what the port builds from the planes
-    assert torch.equal(t_ring_y[1], t_mc.half_pel_planes(T(refs[1])))
-    assert torch.equal(t_ring_c[2, 0], t_mc.chroma_pad(T(crefs[2][0])))
+    assert torch.equal(t_ring_y[1], t_mc.half_pel_planes(S(refs[1]), mx))
+    assert torch.equal(t_ring_c[2, 0], t_mc.chroma_pad(S(crefs[2][0])))
+    assert torch.equal(t_ring_c[0, 1], t_mc.chroma_pad(S(crefs[0][1])))
     need_s2 = not even
     preds = {}
     for lst in range(2):
-        jy = j_mc.luma_mc(jnp.asarray(ring_y), jnp.asarray(slot[lst]),
+        jy = j_mc.luma_mc(jnp.asarray(jrings[0]), jnp.asarray(slot[lst]),
                           jnp.asarray(mv[lst]), H, W, need_s2)
         ty = t_mc.luma_mc(t_ring_y, T(slot[lst]), T(mv[lst]), H, W, need_s2)
         eq(jy, ty)
-        jcb, jcr = j_mc.chroma_mc_pair(jnp.asarray(ring_c), jnp.asarray(slot[lst]),
-                                       jnp.asarray(mv[lst]), H // 2, W // 2)
-        tcb, tcr = t_mc.chroma_mc_pair(t_ring_c, T(slot[lst]), T(mv[lst]), H // 2, W // 2)
+        jcb, jcr = j_mc.chroma_mc_pair(
+            jnp.asarray(jrings[1]), jnp.asarray(slot[lst]), jnp.asarray(mv[lst]), Hc, W // 2,
+            chroma_array_type=cat, packed2=jnp.asarray(jrings[2]) if bd > 8 else None, mx=mx)
+        tcb, tcr = t_mc.chroma_mc_pair(t_ring_c, T(slot[lst]), T(mv[lst]), Hc, W // 2,
+                                       chroma_array_type=cat)
         eq(jcb, tcb)
         eq(jcr, tcr)
         preds[lst] = (np.asarray(jy), ty)
@@ -127,38 +179,43 @@ def test_mc_matches_jax(far, even):
     use0 = rng.random((H, W)) < 0.7
     use1 = rng.random((H, W)) < 0.7
     w0, w1 = rng.integers(-128, 128, (2, H, W)).astype(np.int32)
-    o0, o1 = rng.integers(-128, 128, (2, H, W)).astype(np.int32)
+    o0, o1 = (rng.integers(-128, 128, (2, H, W)) << (bd - 8)).astype(np.int32)
     lwd = rng.integers(0, 8, (H, W)).astype(np.int32)
     jw = j_mc.weighted_combine(jnp.asarray(preds[0][0]), jnp.asarray(preds[1][0]),
                                jnp.asarray(use0), jnp.asarray(use1), jnp.asarray(w0),
                                jnp.asarray(o0), jnp.asarray(w1), jnp.asarray(o1),
-                               jnp.asarray(lwd))
+                               jnp.asarray(lwd), mx)
     tw = t_mc.weighted_combine(preds[0][1], preds[1][1], T(use0), T(use1), T(w0), T(o0),
-                               T(w1), T(o1), T(lwd))
+                               T(w1), T(o1), T(lwd), mx)
     eq(jw, tw)
     # identity weights as scalars (the unweighted short cut)
     jd = j_mc.weighted_combine(jnp.asarray(preds[0][0]), jnp.asarray(preds[1][0]),
-                               jnp.asarray(use0), jnp.asarray(use1), 32, 0, 32, 0, 5)
-    td = t_mc.weighted_combine(preds[0][1], preds[1][1], T(use0), T(use1), 32, 0, 32, 0, 5)
+                               jnp.asarray(use0), jnp.asarray(use1), 32, 0, 32, 0, 5, mx)
+    td = t_mc.weighted_combine(preds[0][1], preds[1][1], T(use0), T(use1), 32, 0, 32, 0, 5,
+                               mx)
     eq(jd, td)
 
 
-def _prep_both(p, mb_h=4, mb_w=4, slot_cells=True):
+def _prep_both(p, mb_h=4, mb_w=4, slot_cells=True, all_h=False):
     keys = ("mb_cls", "qp", "t8", "slice_mb", "disable", "aoff", "boff", "nnz",
             "ref_pic", "mv")
     jp = j_prep.deblock_prep_device(
         *(jnp.asarray(p[k]) for k in keys), p["offs"], mb_h, mb_w,
-        slot_cells=jnp.asarray(p["slot"]) if slot_cells else None)
+        slot_cells=jnp.asarray(p["slot"]) if slot_cells else None,
+        chroma_all_h_edges=all_h)
     tp = t_prep.deblock_prep_device(
         *(T(p[k]) for k in keys), p["offs"], mb_h, mb_w,
-        slot_cells=T(p["slot"]) if slot_cells else None)
+        slot_cells=T(p["slot"]) if slot_cells else None, chroma_all_h_edges=all_h)
     return jp, tp
 
 
-@pytest.mark.parametrize("seed,slot_cells", [(21, True), (22, False)])
-def test_deblock_prep_matches_jax(seed, slot_cells):
-    jp, tp = _prep_both(_prep_inputs(seed), slot_cells=slot_cells)
+@pytest.mark.parametrize("seed,slot_cells,all_h", [(21, True, False), (22, False, False),
+                                                   (23, True, True)],
+                         ids=["21-True", "22-False", "23-True-422"])
+def test_deblock_prep_matches_jax(seed, slot_cells, all_h):
+    jp, tp = _prep_both(_prep_inputs(seed), slot_cells=slot_cells, all_h=all_h)
     assert set(jp) == set(tp)
+    assert ("bs_hc" in tp) == all_h
     for k in jp:
         eq(jp[k], tp[k])
         assert tp[k].dtype == torch.int32, k
@@ -174,15 +231,24 @@ def test_deblock_prep_matches_jax(seed, slot_cells):
         eq(getattr(j_prep, fn)(jnp.asarray(a), 4, 4), getattr(t_prep, fn)(T(a), 4, 4))
 
 
-@pytest.mark.parametrize("seed,mb_h,mb_w", [(31, 4, 4), (32, 9, 11)])
-def test_intra_plain_matches_jax(seed, mb_h, mb_w):
-    args = _intra_inputs(seed, mb_h, mb_w)
-    jo = j_intra.intra_wavefront(*(jnp.asarray(a) for a in args), mb_h, mb_w)
-    to = t_intra.intra_wavefront(*(T(a) for a in args), mb_h, mb_w)
+# (seed, mb_h, mb_w, chroma MB height, bit depth); the 4:2:0 8-bit cases
+# keep their ids
+INTRA_CASES = [(31, 4, 4, 8, 8), (32, 9, 11, 8, 8), (33, 4, 4, 16, 10), (34, 5, 6, 8, 10)]
+
+
+@pytest.mark.parametrize("seed,mb_h,mb_w,ch_h,bd", INTRA_CASES,
+                         ids=[f"{s}-{h}-{w}" + ("" if (c, b) == (8, 8) else f"-ch{c}-bd{b}")
+                              for s, h, w, c, b in INTRA_CASES])
+def test_intra_plain_matches_jax(seed, mb_h, mb_w, ch_h, bd):
+    args = _intra_inputs(seed, mb_h, mb_w, ch_h=ch_h, bd=bd)
+    fmt = dict(ch_h=ch_h, mid=1 << (bd - 1), mx=(1 << bd) - 1)
+    jo = j_intra.intra_wavefront(*(jnp.asarray(a) for a in args), mb_h, mb_w, **fmt)
+    to = t_intra.intra_wavefront(*(T(a) for a in args), mb_h, mb_w, **fmt)
+    assert to[1].shape == (mb_h * ch_h, mb_w * 8)
     for a, b in zip(jo, to):
         eq(a, b)
     # the CPU path of the kernel wrapper is the plain version
-    wo = intra_cuda.intra_frame(*(T(a) for a in args), mb_h, mb_w)
+    wo = intra_cuda.intra_frame(*(T(a) for a in args), mb_h, mb_w, **fmt)
     for a, b in zip(to, wo):
         assert torch.equal(a, b)
 
@@ -228,22 +294,36 @@ def test_intra_chroma_ignores_top_right(seed, x, y):
         assert not np.array_equal(before[below_px], after[below_px])
 
 
-@pytest.mark.parametrize("seed,mb_h,mb_w", [(41, 4, 4), (42, 9, 11)])
-def test_deblock_plain_matches_jax(seed, mb_h, mb_w):
+# (seed, mb_h, mb_w, chroma MB height, bit depth); the 4:2:0 8-bit cases
+# keep their ids
+DEBLOCK_CASES = [(41, 4, 4, 8, 8), (42, 9, 11, 8, 8), (43, 4, 4, 16, 10), (44, 5, 6, 8, 10),
+                 (45, 5, 6, 16, 8)]
+
+
+@pytest.mark.parametrize("seed,mb_h,mb_w,ch_h,bd", DEBLOCK_CASES,
+                         ids=[f"{s}-{h}-{w}" + ("" if (c, b) == (8, 8) else f"-ch{c}-bd{b}")
+                              for s, h, w, c, b in DEBLOCK_CASES])
+def test_deblock_plain_matches_jax(seed, mb_h, mb_w, ch_h, bd):
     rng = np.random.default_rng(seed)
     p = _prep_inputs(seed, mb_h, mb_w)
+    sh, mx = bd - 8, (1 << bd) - 1
+    sdt = np.uint8 if bd == 8 else np.uint16
     # low-contrast planes so the filters really fire
-    y = np.clip(128 + rng.integers(-12, 13, (16 * mb_h, 16 * mb_w)), 0, 255).astype(np.uint8)
-    cb, cr = np.clip(128 + rng.integers(-10, 11, (2, 8 * mb_h, 8 * mb_w)), 0, 255).astype(
-        np.uint8)
-    jp, tp = _prep_both(p, mb_h, mb_w)
+    y = np.clip((128 << sh) + rng.integers(-12 << sh, (12 << sh) + 1, (16 * mb_h, 16 * mb_w)),
+                0, mx).astype(sdt)
+    cb, cr = np.clip((128 << sh) + rng.integers(-10 << sh, (10 << sh) + 1,
+                                                (2, ch_h * mb_h, 8 * mb_w)), 0, mx).astype(sdt)
+    jp, tp = _prep_both(p, mb_h, mb_w, all_h=ch_h == 16)
+    fmt = dict(ch_h=ch_h, bd_scale=1 << sh, mx=mx)
     jo = j_db.deblock_frame_tpu(jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr), jp,
-                                mb_h, mb_w)
-    to = t_db.deblock_frame(T(y), T(cb), T(cr), tp, mb_h, mb_w)
+                                mb_h, mb_w, **fmt)
+    to = t_db.deblock_frame(S(y), S(cb), S(cr), tp, mb_h, mb_w, **fmt)
     for a, b in zip(jo, to):
-        eq(a, b)
-    assert not np.array_equal(to[0].numpy(), y)
-    wo = deblock_cuda.deblock_frame(T(y), T(cb), T(cr), tp, mb_h, mb_w)
+        assert b.dtype == S(y).dtype
+        eq(np.asarray(a).astype(np.int32), b.to(torch.int32))
+    assert not np.array_equal(to[0].numpy(), S(y).numpy())
+    assert not np.array_equal(to[1].numpy(), S(cb).numpy())
+    wo = deblock_cuda.deblock_frame(S(y), S(cb), S(cr), tp, mb_h, mb_w, **fmt)
     for a, b in zip(to, wo):
         assert torch.equal(a, b)
 

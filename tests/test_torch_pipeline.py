@@ -2,7 +2,6 @@
 and libavcodec. Every comparison is bit-exact (tolerance 0)."""
 
 import ast
-import hashlib
 import json
 import os
 import subprocess
@@ -19,6 +18,7 @@ from h264decode_tpu_torch.cli.main import main as cli_main
 from h264decode_tpu_torch.entropy import native
 from h264decode_tpu_torch.pipeline import gpu_pipeline
 from h264decode_tpu_torch.pipeline.gpu_pipeline import GpuDecoder
+from chip_smoke import y4m_md5s
 from tests.conftest import make_test_frames
 
 torch.set_num_threads(1)
@@ -35,11 +35,44 @@ def fade_frames(n, h, w, seed=3):
             for i, (y, cb, cr) in enumerate(make_test_frames(n, h, w, seed=seed))]
 
 
+def to_format(frames, csp, seed=0):
+    """8-bit 4:2:0 test frames -> planes for x264's pixel format csp: gray
+    keeps luma; 4:2:2 and 4:4:4 widen the chroma (with row detail of its
+    own for 4:2:2); 10-bit formats scale by 4 and fill the low bits."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for y, cb, cr in frames:
+        if csp == "gray":
+            out.append((y,))
+            continue
+        if "422" in csp or "444" in csp:
+            rows = np.arange(2 * cb.shape[0])[:, None]
+            cb = np.clip(np.repeat(cb, 2, 0) + (8 * np.sin(rows / 3.0)).astype(int), 0, 255)
+            cr = np.clip(np.repeat(cr, 2, 0) - (8 * np.cos(rows / 5.0)).astype(int), 0, 255)
+        if "444" in csp:
+            cb, cr = np.repeat(cb, 2, 1), np.repeat(cr, 2, 1)
+        planes = [np.asarray(p, np.uint8) for p in (y, cb, cr)]
+        if "10" in csp:
+            planes = [(p.astype(np.uint16) << 2) | rng.integers(0, 4, p.shape, np.uint16)
+                      for p in planes]
+        out.append(tuple(planes))
+    return out
+
+
 def assert_frames_equal(golden, ours):
+    """Bit-exact planes, dtype included. libavcodec returns no chroma for a
+    monochrome stream; the decoder's chroma is then the mid-gray fill."""
     assert len(golden) == len(ours)
     for fi, (g, o) in enumerate(zip(golden, ours)):
         for name, gp, op in zip("y cb cr".split(), g.planes(), o.planes()):
-            assert np.array_equal(np.asarray(gp), np.asarray(op)), (fi, name)
+            gp, op = np.asarray(gp), np.asarray(op)
+            if gp.size == 0:
+                mid = 1 << (8 * g.y.itemsize - 1)
+                assert op.shape == ((g.y.shape[0] + 1) // 2, (g.y.shape[1] + 1) // 2)
+                assert (op == mid).all(), (fi, name)
+                continue
+            assert gp.dtype == op.dtype, (fi, name)
+            assert np.array_equal(gp, op), (fi, name)
 
 
 def gpu_decode_cpu(bs):
@@ -47,40 +80,76 @@ def gpu_decode_cpu(bs):
         return dec.decode_stream(bs)
 
 
-def test_frame_step_matches_jax_on_weighted_p_frame(monkeypatch):
-    """The same wire and ring through both frame programs."""
-    frames = fade_frames(3, 64, 64)
-    bs = lavc.encode_x264(frames, qp=26, profile="main", cabac=True, bframes=0,
-                          extra_x264="weightp=2")
+def _record_jax_frame_steps(monkeypatch):
+    """Record every call of the JAX package's frame_step as numpy: (wire,
+    input rings, dyn, mb_h, mb_w, flags, outputs (rings..., packed))."""
     calls = []
     orig = tpu_pipeline.frame_step
 
     def record(wire, ry, rcb, rcr, dyn, mb_h, mb_w, n_refs, flags):
         out = orig(wire, ry, rcb, rcr, dyn, mb_h, mb_w, n_refs, flags)
         calls.append((
-            {k: np.asarray(v) for k, v in wire.items()}, np.asarray(ry), np.asarray(rcb),
+            {k: np.asarray(v) for k, v in wire.items()},
+            (np.asarray(ry), np.asarray(rcb), np.asarray(rcr)),
             {k: (v if k == "qp_offsets" else np.asarray(v)) for k, v in dyn.items()},
             mb_h, mb_w, flags, [np.asarray(o) for o in out],
         ))
         return out
 
     monkeypatch.setattr(tpu_pipeline, "frame_step", record)
+    return calls
+
+
+def _port_frame_step_matches(call):
+    """Run one recorded JAX frame through the port's frame_step: the packed
+    output and both rings must be identical."""
+    wire, rings, dyn, mb_h, mb_w, flags, jout = call
+    has_l8, has_pcm, apply_db, sparse, _, has_intra, cf2, bd, need_s2 = flags
+    hbd = bd > 8  # the JAX rings hold Cb and Cr apart above 8 bits
+    t_wire, t_dyn = convert.wire_from_numpy(wire, dyn)
+    ring_y, ring_c = convert.ring_from_jax(*rings[: 3 if hbd else 2])
+    packed = gpu_pipeline.frame_step(
+        t_wire, ring_y, ring_c, t_dyn, mb_h, mb_w,
+        (has_l8, has_pcm, apply_db, sparse, has_intra, need_s2, 2 if cf2 else 1, bd),
+        int(wire["slot_idx"][0]),
+    )
+    jpacked = jout[-1]
+    assert packed.shape == jpacked.shape
+    np.testing.assert_array_equal(packed.numpy().view(jpacked.dtype), jpacked)
+    ey, ec = convert.ring_from_jax(*jout[: 3 if hbd else 2])
+    assert torch.equal(ring_y, ey)
+    assert torch.equal(ring_c, ec)
+
+
+def test_frame_step_matches_jax_on_weighted_p_frame(monkeypatch):
+    """The same wire and ring through both frame programs."""
+    frames = fade_frames(3, 64, 64)
+    bs = lavc.encode_x264(frames, qp=26, profile="main", cabac=True, bframes=0,
+                          extra_x264="weightp=2")
+    calls = _record_jax_frame_steps(monkeypatch)
     tpu_pipeline.TpuDecoder().decode_stream(bs)
     weighted = [c for c in calls if "w_tab" in c[0]]
     assert weighted, "x264 coded no weighted P frame"
-    wire, ry, rcb, dyn, mb_h, mb_w, flags, (jry, jrcb, _, jpacked) = weighted[0]
+    wire = weighted[0][0]
     assert (wire["w_tab"] != 32).any() or (wire["o_tab"] != 0).any()
-    t_wire, t_dyn = convert.wire_from_numpy(wire, dyn)
-    ring_y, ring_c = convert.ring_from_jax(ry, rcb)
-    has_l8, has_pcm, apply_db, sparse, _, has_intra, _, _, need_s2 = flags
-    packed = gpu_pipeline.frame_step(
-        t_wire, ring_y, ring_c, t_dyn, mb_h, mb_w,
-        (has_l8, has_pcm, apply_db, sparse, has_intra, need_s2), int(wire["slot_idx"][0]),
-    )
-    np.testing.assert_array_equal(packed.numpy(), jpacked)
-    ey, ec = convert.ring_from_jax(jry, jrcb)
-    assert torch.equal(ring_y, ey)
-    assert torch.equal(ring_c, ec)
+    _port_frame_step_matches(weighted[0])
+
+
+def test_frame_step_matches_jax_on_high422_10bit_weighted_frame(monkeypatch):
+    """High 4:2:2 10-bit: full-height chroma, the 2x4 chroma DC, 4:2:2 MC,
+    16-bit rings and scaled weight offsets, through both frame programs."""
+    frames = to_format(fade_frames(3, 64, 96), "yuv422p10le")
+    bs = lavc.encode_x264(frames, qp=26, profile="high422", csp="yuv422p10le", cabac=True,
+                          bframes=0, extra_x264="weightp=2:8x8dct=1")
+    calls = _record_jax_frame_steps(monkeypatch)
+    tpu_pipeline.TpuDecoder().decode_stream(bs)
+    weighted = [c for c in calls if "w_tab" in c[0]]
+    assert weighted, "x264 coded no weighted P frame"
+    wire, _, _, _, _, flags, jout = weighted[0]
+    assert flags[6] and flags[7] == 10  # 4:2:2, 10-bit
+    assert (wire["o_tab"] != 0).any()  # offsets that the bit depth scales
+    assert jout[-1].shape == (2 * 64, 96) and jout[-1].dtype == np.uint16
+    _port_frame_step_matches(weighted[0])
 
 
 def test_gpu_decoder_cpu_matches_tpu_decoder():
@@ -99,19 +168,31 @@ STREAMS = {
     "weighted_pb": dict(profile="main", cabac=True, bframes=2,
                         extra_x264="weightp=2:weightb=1"),
     "four_slices": dict(profile="main", cabac=True, bframes=1, extra_x264="slices=4"),
+    "high422_10_weighted": dict(profile="high422", csp="yuv422p10le", cabac=True, bframes=2,
+                                extra_x264="weightp=2:8x8dct=1"),
+    "high422_8": dict(profile="high422", csp="yuv422p", cabac=False, bframes=1),
+    "high10_weighted": dict(profile="high10", csp="yuv420p10le", cabac=True, bframes=2,
+                            extra_x264="weightp=2:weightb=1"),
+    "mono": dict(profile="high", csp="gray", cabac=True, bframes=1, extra_x264="8x8dct=1"),
     # routed to the numpy oracle, as in the JAX package
     "mbaff": dict(profile="high", cabac=True, bframes=0, extra_x264="interlaced=1"),
     "lossless": dict(qp=0, profile="main", cabac=True, bframes=0),
+    "high444_10": dict(profile="high444", csp="yuv444p10le", cabac=True, bframes=1),
 }
+ORACLE_STREAMS = {"mbaff", "lossless", "high444_10"}
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_gpu_decoder_cpu_matches_libavcodec(name):
-    frames = fade_frames(4, 144, 176, seed=5) if name == "weighted_pb" else \
+    frames = fade_frames(4, 144, 176, seed=5) if "weighted" in name else \
         make_test_frames(4, 144, 176, seed=6)
-    bs = lavc.encode_x264(frames, **{"qp": 27, **STREAMS[name]})
+    kw = {"qp": 27, **STREAMS[name]}
+    bs = lavc.encode_x264(to_format(frames, kw.get("csp", "yuv420p")), **kw)
     native.calls.clear()
-    ours = gpu_decode_cpu(bs)
+    with GpuDecoder(device="cpu") as dec:
+        ours = dec.decode_stream(bs)
+        # the frame program ran unless the stream's class is the oracle's
+        assert (dec._ring is None) == (name in ORACLE_STREAMS)
     assert native.calls["decode_slice"] > 0  # the native engine decoded
     assert_frames_equal(lavc.decode_annexb(bs), ours)
 
@@ -136,13 +217,32 @@ def test_rings_larger_than_the_card_raise_on_cuda(monkeypatch):
                         lambda dev: SimpleNamespace(total_memory=64 << 20))
     with GpuDecoder(device="cpu") as dec:
         dec.device = torch.device("cuda", 0)  # only the guard reads it here
+        fmt = dict(chroma_array_type=1, bit_depth_luma=8)
         cif = SimpleNamespace(max_num_ref_frames=3, frame_height_in_mbs=18,
-                              pic_width_in_mbs=22)
+                              pic_width_in_mbs=22, **fmt)
         assert not dec._ring_over_budget(cif)  # fits: stays on the card
         uhd = SimpleNamespace(max_num_ref_frames=16, frame_height_in_mbs=135,
-                              pic_width_in_mbs=240)
+                              pic_width_in_mbs=240, **fmt)
         with pytest.raises(MemoryError, match="DPB rings"):
             dec._ring_over_budget(uhd)
+
+
+@pytest.mark.parametrize("cat,bd", [(0, 8), (1, 8), (2, 8), (1, 10), (2, 10)])
+def test_ring_bytes_count_what_the_decoder_allocates(cat, bd):
+    """ring_bytes (the budget guard's measure) counts the rings _ensure_ring
+    allocates: full-height 4:2:2 chroma, 2-byte samples above 8 bits, and
+    the mid-gray chroma ring of monochrome."""
+    from types import SimpleNamespace
+
+    sps = SimpleNamespace(max_num_ref_frames=2, frame_height_in_mbs=4, pic_width_in_mbs=6,
+                          chroma_array_type=cat, bit_depth_luma=bd)
+    with GpuDecoder(device="cpu") as dec:
+        dec._ensure_ring(sps)
+        ring_y, ring_c = dec._ring
+        assert ring_y.dtype == (torch.uint8 if bd == 8 else torch.int16)
+        assert ring_c.shape[-2] == (64 if cat == 2 else 32) + 2 * 8
+        got = sum(t.numel() * t.element_size() for t in dec._ring)
+    assert got == GpuDecoder.ring_bytes(sps)
 
 
 def test_cli_decodes_cif_smoke_stream_to_committed_md5s(tmp_path):
@@ -151,16 +251,20 @@ def test_cli_decodes_cif_smoke_stream_to_committed_md5s(tmp_path):
     out = tmp_path / "out.y4m"
     assert cli_main(["decode", os.path.join(DATA, "smoke_cif_high.h264"), str(out),
                      "--device", "cpu"]) == 0
-    W, H = want["width"], want["height"]
-    raw = out.read_bytes()
-    frames = raw.split(b"FRAME\n")[1:]
-    assert len(frames) == len(want["frames"])
-    for fi, (fr, md5s) in enumerate(zip(frames, want["frames"])):
-        y = fr[: W * H]
-        cb = fr[W * H : W * H + W * H // 4]
-        cr = fr[W * H + W * H // 4 : W * H + W * H // 2]
-        got = [hashlib.md5(p).hexdigest() for p in (y, cb, cr)]
-        assert got == md5s, fi
+    assert y4m_md5s(str(out), want) == want["frames"]
+
+
+@pytest.mark.parametrize("name", ["smoke_cif_high10.h264", "smoke_cif_gray.h264"])
+def test_cli_decodes_new_format_smoke_streams_to_committed_md5s(tmp_path, name):
+    """High 10 (uint16 samples in the Y4M) and monochrome (mid-gray 4:2:0
+    chroma) through the CLI, to the committed libavcodec MD5s."""
+    with open(os.path.join(DATA, "smoke_md5.json")) as f:
+        want = json.load(f)[name]
+    out = tmp_path / "out.y4m"
+    assert cli_main(["decode", os.path.join(DATA, name), str(out), "--device", "cpu"]) == 0
+    got = y4m_md5s(str(out), want)
+    assert len(got) == len(want["frames"]) == 8
+    assert got == want["frames"]
 
 
 def test_gpu_decoder_needs_cuda_unless_asked_for_cpu(monkeypatch):
@@ -173,10 +277,11 @@ def test_gpu_decoder_needs_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 def test_unported_formats_raise():
-    frames = [(y, np.repeat(cb, 2, 0), np.repeat(cr, 2, 0))
-              for y, cb, cr in make_test_frames(1, 32, 32)]
-    bs = lavc.encode_x264(frames, qp=30, profile="high422", cabac=False, bframes=0,
-                          csp="yuv422p")
+    """8-bit 4:4:4 is not on the GPU path yet (High 4:4:4 at 10 bits decodes
+    on the host oracle, as in the JAX package)."""
+    frames = to_format(make_test_frames(1, 32, 32), "yuv444p")
+    bs = lavc.encode_x264(frames, qp=30, profile="high444", cabac=False, bframes=0,
+                          csp="yuv444p")
     with GpuDecoder(device="cpu") as dec, pytest.raises(NotImplementedError,
                                                           match="ROADMAP"):
         dec.decode_stream(bs)

@@ -10,30 +10,40 @@ raises on failure, and the script then exits non-zero):
    kernels (one nvcc per csrc/*.cu, started together) and the native
    entropy engine, and print the build time.
 2. Kernels against their plain torch versions on the card, at 1080p
-   geometry (68 x 120 MBs), in two instantiations: 4:2:0 8-bit and 4:2:2
-   10-bit (16-line chroma MBs, uint16 deblock samples). Seeded inputs cover
-   every MB kind, all 9 Intra4x4/8x8 modes, all 4 Intra16x16 and chroma
-   modes, random availability combinations, bS 0..4, QP 0 and 51, and
-   samples over the whole range of the bit depth. Bit-exact (tolerance 0:
-   integer outputs). Race check by repetition: each kernel's call is
+   geometry (68 x 120 MBs), in three instantiations: 4:2:0 8-bit, 4:2:2
+   10-bit (16-line chroma MBs, uint16 deblock samples) and 8-bit 4:4:4
+   (intra_luma and deblock_luma over the Y, Cb and Cr planes in one launch;
+   Y takes the 4:2:0 phase's luma inputs). Seeded inputs
+   cover every MB kind, all 9 Intra4x4/8x8 modes, all 4 Intra16x16 and
+   chroma modes, random availability combinations, bS 0..4, QP 0 and 51,
+   and samples over the whole range of the bit depth. Bit-exact (tolerance
+   0: integer outputs). Race check by repetition: each kernel's call is
    captured in a CUDA graph and replayed 20 times from the reset inputs,
    every replay bit-exact against the plain output. Kernel times: CUDA
    events around one replay of that graph, median of 5 (the eager call's
    event time, which includes the host's enqueue gaps, is printed beside
-   it). Plain versions: events around the call (the 4:2:2 10-bit intra
-   one, about 20 s, is timed on its one call).
+   it); the 3-plane kernels are timed beside a graph of three single-plane
+   calls. Plain versions: events around the one call whose output is
+   compared (an intra call takes about 20 s a plane).
 3. The main path, stream by stream, through GpuDecoder (launch counters
-   set to 0 just before, read just after; every kernel must have launched,
-   each exactly one device kernel (a persistent row wavefront) per call,
-   and the native entropy engine must have decoded) and through
+   set to 0 just before, read just after; every kernel of the stream's
+   format must have launched, each exactly one device kernel (a persistent
+   row wavefront) per call, a 4:4:4 stream no chroma kernel at all, and the
+   native entropy engine must have decoded) and through
    `python -m h264decode_tpu_torch decode`. Every frame's per-plane MD5
    must equal libavcodec's committed MD5s. Prints frames/s from the median
    of three decodes (timing fence: torch.cuda.synchronize()) and the
-   per-stage timers, and for the 1080p and CIF High streams a
+   per-stage timers, and for the 1080p streams and CIF High a
    torch.profiler trace of one more decode (device busy time, idle share,
-   kernels per frame, top device kernels). The streams: 1080p Main CABAC, CIF High (Intra8x8, weighted
-   prediction, 4 slices), 1080p High 4:2:2 10-bit (I/P/B, 8x8 transform),
-   CIF High 10 (weighted prediction, 4 slices) and CIF monochrome.
+   kernels per frame, top device kernels). The streams: 1080p Main CABAC,
+   CIF High (Intra8x8, weighted prediction, 4 slices), 1080p High 4:2:2
+   10-bit (I/P/B, 8x8 transform), CIF High 10 (weighted prediction, 4
+   slices), CIF monochrome, 1080p High 4:4:4 Predictive 8-bit (I/P/B, 8x8
+   transform) and CIF High 4:4:4 (the CIF High options and the JVT
+   scaling lists).
+4. `python -m h264decode_tpu_torch serve --port 0 --once` as a subprocess
+   on the card, fed the 1080p 4:4:4 stream over TCP: its Y4M must match
+   the committed MD5s; prints the wall time from connecting to its exit.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -62,16 +72,23 @@ MB_H, MB_W = 68, 120  # 1920x1088 coded
 REPLAYS = 20  # graph replays per kernel in the race check
 # the wrappers, each one persistent launch per call
 ROW_KERNELS = ("intra_luma", "intra_chroma", "deblock_luma", "deblock_chroma")
+# a 4:4:4 stream runs Cb and Cr through the luma kernels (three planes a
+# launch) and must launch the chroma kernels zero times
+LUMA_KERNELS = ("intra_luma", "deblock_luma")
 # the kernels' instantiations held against their plain versions:
 # (ChromaArrayType, bit depth) -> suffix of the kernel table's row names
-FORMATS = {(1, 8): "", (2, 10): "_422_10"}
+FORMATS = {(1, 8): "", (2, 10): "_422_10", (3, 8): "_444"}
 # committed streams: (name, format suffix of the kernel rows its launches
 # count for or None, whether to trace it)
 STREAMS = (("smoke_1080p_main_cabac.h264", "", True),
            ("smoke_cif_high.h264", None, True),
            ("smoke_1080p_high422_10.h264", "_422_10", True),
            ("smoke_cif_high10.h264", None, False),
-           ("smoke_cif_gray.h264", None, False))
+           ("smoke_cif_gray.h264", None, False),
+           ("smoke_1080p_high444.h264", "_444", True),
+           ("smoke_cif_high444.h264", None, False))
+# the stream the serve phase sends over TCP
+SERVE_STREAM = "smoke_1080p_high444.h264"
 
 
 def log(msg: str):
@@ -248,13 +265,10 @@ def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
     args = (t["y"], t["cb"], t["cr"], t["ry"], t["rcb"], t["rcr"], t["kind"], t["modes4"],
             t["i16"], t["cm"], t["avl"], t["avt"], t["avtr"], t["avtl"], MB_H, MB_W,
             ch_h, mid, mx)
-    if bd == 8:
-        plain = intra_wavefront(*args)
-        ms_plain = cuda_ms(lambda: intra_wavefront(*args), runs=2)
-    else:  # ~20 s a call: time the one call whose output is compared
-        box = []
-        ms_plain = cuda_ms(lambda: box.append(intra_wavefront(*args)), runs=1, warmup=0)
-        plain = box[0]
+    # ~20 s a call: time the one call whose output is compared
+    box = []
+    ms_plain = cuda_ms(lambda: box.append(intra_wavefront(*args)), runs=1, warmup=0)
+    plain = box[0]
     params = intra_cuda.pack_params(t["kind"], t["modes4"], t["i16"], t["cm"], t["avl"],
                                     t["avt"], t["avtr"], t["avtl"])
     work = {k: t[k].clone() for k in ("y", "cb", "cr")}
@@ -308,9 +322,14 @@ def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
         f"bit-exact")
 
     # ---- deblock
+    ctx = dict(intra=t)
     (y0, cb0, cr0), prep = deblock_inputs(dev, ch_h=ch_h, bd=bd)
     fmt = (ch_h, bd_scale, mx)
-    plain = deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W, *fmt)
+    box = []  # ~5 s a call: time the one call whose output is compared
+    ms_plain = cuda_ms(lambda: box.append(deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W, *fmt)),
+                       runs=1, warmup=0)
+    plain = box[0]
+    ctx["deblock"] = (y0, prep)
     dw = dict(y=y0.clone(), cb=cb0.clone(), cr=cr0.clone())
 
     def reset_db():
@@ -337,7 +356,6 @@ def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
     replay_check("deblock_chroma" + suffix, g_c, reset_db, [dw["cb"], dw["cr"]], plain[1:])
     ms_l, ms_c = graph_ms(g_l, reset_db), graph_ms(g_c, reset_db)
     eager_l, eager_c = cuda_ms(run_l, reset_db), cuda_ms(run_c, reset_db)
-    ms_plain = cuda_ms(lambda: deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W, *fmt), runs=2)
     bs_c = prep["bs_hc"] if ch_h == 16 else prep["bs_h"]
     mb_any = ((prep["bs_v"] > 0) | (prep["bs_h"] > 0) | (bs_c > 0)
               ).reshape(MB_H, 4, MB_W, 4).any(3).any(1)
@@ -365,9 +383,113 @@ def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
         f"{eager_l} chroma {eager_c}; plain (both) {ms_plain} ms; active MBs {n_act} of "
         f"{n}; samples changed by the filter (y, cb, cr) {changed}; {REPLAYS} graph "
         f"replays of each bit-exact")
-    bad = {k: v["max_abs_err"] for k, v in res.items() if v["max_abs_err"] != 0}
+    check_exact(res)
+    return res, ctx
+
+
+def check_exact(rows: dict) -> None:
+    bad = {k: v["max_abs_err"] for k, v in rows.items() if v["max_abs_err"] != 0}
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
+
+
+def planes_phase(dev, base: dict) -> dict:
+    """The 8-bit 4:4:4 instantiation, intra_luma and deblock_luma over the
+    Y, Cb and Cr planes in one launch each, against their plain per-plane
+    versions at 1080p geometry. Y takes the 4:2:0 phase's luma inputs
+    (`base`), and Cb and Cr planes of their own; the plain version runs
+    once over all three planes, and that call is timed and compared. In the
+    same run, one 3-plane graph is timed against a graph of three
+    single-plane calls; both are replayed REPLAYS times bit-exact. Returns
+    the kernel table's two rows."""
+    import torch
+
+    from h264decode_tpu_torch.kernels import deblock_cuda, intra_cuda
+
+    suffix, fmt_name = FORMATS[(3, 8)], "4:4:4 8-bit (Y, Cb, Cr)"
+    rng = np.random.default_rng(3)
+    n, H, W = MB_H * MB_W, 16 * MB_H, 16 * MB_W
+    res = {}
+
+    def own(lo, hi, dtype):  # Cb and Cr planes of their own
+        return torch.as_tensor(rng.integers(lo, hi, (2, H, W)).astype(dtype), device=dev)
+
+    def compare(name, run3, run1x3, work, reset, want):
+        """(max_abs_err, 3-plane graph ms, three-calls graph ms)."""
+        reset()
+        run3()
+        torch.cuda.synchronize()
+        err = int((work.to(torch.int32) - want.to(torch.int32)).abs().max())
+        g3, g1 = capture(run3, reset), capture(run1x3, reset)
+        replay_check(name + suffix, g3, reset, [work], [want])
+        replay_check(name + suffix + " (three single-plane calls)", g1, reset, [work], [want])
+        return err, graph_ms(g3, reset), graph_ms(g1, reset)
+
+    # ---- intra
+    t = base["intra"]
+    planes = torch.cat([t["y"][None], own(0, 256, np.int32)])
+    resid = torch.cat([t["ry"][None], own(-60, 60, np.int32)])
+    modes = (t["kind"], t["modes4"], t["i16"], t["avl"], t["avt"], t["avtr"], t["avtl"])
+    box = []  # ~20 s a plane: time the one call whose output is compared
+    plain_i = cuda_ms(lambda: box.append(intra_cuda.intra_planes_plain(
+        planes, resid, *modes, MB_H, MB_W)), runs=1, warmup=0)
+    want = box[0]
+    params = intra_cuda.pack_params(t["kind"], t["modes4"], t["i16"], torch.zeros_like(t["i16"]),
+                                    *modes[3:])
+    work = planes.clone()
+    err_i, ms_i, ms_i3 = compare(
+        "intra_luma",
+        lambda: intra_cuda.intra_luma(work, resid, params, MB_H, MB_W),
+        lambda: [intra_cuda.intra_luma(work[k], resid[k], params, MB_H, MB_W) for k in range(3)],
+        work, lambda: work.copy_(planes), want)
+    n_intra = int((t["kind"] > 0).sum())
+    n_kind = [int((t["kind"] == k).sum()) for k in (1, 2, 3)]
+    # as the 4:2:0 row, with the per-plane work three times: the params
+    # table is read once
+    b_i = n * 4 * 20 + 3 * n_intra * 4 * (256 * 2 + 16 + 25)
+    ops_i = 3 * 256 * (23 * n_kind[0] + 63 * n_kind[1] + 15 * n_kind[2])
+
+    # ---- deblock
+    y0, prep = base["deblock"]
+    prep3 = deblock_cuda.prep_444(prep)
+    preps = [deblock_cuda.plane_prep(prep3, k) for k in range(3)]
+    planes = torch.cat([y0[None], own(116, 141, np.uint8)])
+    box = []  # ~5 s a plane: time the one call whose output is compared
+    plain_d = cuda_ms(lambda: box.append(deblock_cuda.deblock_planes_plain(
+        planes, prep3, MB_H, MB_W)), runs=1, warmup=0)
+    want = box[0]
+    changed = [int((a != b).sum()) for a, b in zip(want, planes)]
+    if 0 in changed:
+        raise RuntimeError(f"deblock 4:4:4 inputs: a plane left unchanged ({changed})")
+    work = planes.clone()
+    err_d, ms_d, ms_d3 = compare(
+        "deblock_luma",
+        lambda: deblock_cuda.deblock_luma(work, prep3, MB_H, MB_W),
+        lambda: [deblock_cuda.deblock_luma(work[k], preps[k], MB_H, MB_W) for k in range(3)],
+        work, lambda: work.copy_(planes), want)
+    mb_any = ((prep["bs_v"] > 0) | (prep["bs_h"] > 0)).reshape(MB_H, 4, MB_W, 4).any(3).any(1)
+    n_act = int(mb_any.sum())
+    b_d = n * 16 * 4 * 2 + 3 * n_act * (16 * 4 * 4 + 20 * 20 + 256)
+    ops_d = 3 * n_act * 8 * 16 * 40
+    for name, err, ms, ms3, nb, ops, src, cu, pms in (
+        ("intra_luma", err_i, ms_i, ms_i3, b_i, ops_i, "intra_pallas.py:440", "intra.cu",
+         plain_i),
+        ("deblock_luma", err_d, ms_d, ms_d3, b_d, ops_d, "deblock_pallas.py:211", "deblock.cu",
+         plain_d),
+    ):
+        bms, by = bound(nb, ops)
+        res[name + suffix] = dict(
+            name=name + suffix, kernel=name, format=fmt_name, route="cuda",
+            source=f"h264decode_tpu_torch/csrc/{cu}",
+            replaces=f"h264decode_tpu/kernels/{src}", max_abs_err=err, ms=ms,
+            three_single_plane_calls_ms=ms3, plain_ms=pms, bound_ms=bms, bound_by=by,
+            library_ms=None)
+    log(f"4:4:4 (3 planes in one launch): max_abs_err intra {err_i} deblock {err_d}; graph "
+        f"ms intra {ms_i} (three single-plane calls {ms_i3}), deblock {ms_d} (three calls "
+        f"{ms_d3}); plain (one call over the three planes) intra {plain_i} ms, deblock "
+        f"{plain_d} ms; active deblock MBs {n_act} of {n}; samples changed "
+        f"by the filter (y, cb, cr) {changed}; {REPLAYS} graph replays of each bit-exact")
+    check_exact(res)
     return res
 
 
@@ -384,12 +506,13 @@ def md5s(planes) -> list[str]:
 def y4m_md5s(path: str, want: dict) -> list[list[str]]:
     """Per-frame, per-plane MD5s of a Y4M file, split by the fixed frame
     size that the stream's geometry, bit depth (2-byte samples above 8) and
-    chroma format (full-height chroma for 4:2:2) give: the 6 bytes
-    "FRAME\\n" can occur inside 16-bit sample data."""
+    chroma format (full-height chroma for 4:2:2, full-size for 4:4:4) give:
+    the 6 bytes "FRAME\\n" can occur inside 16-bit sample data."""
     W, H = want["width"], want["height"]
     bps = 2 if want["bit_depth"] > 8 else 1
-    Hc = H if want["chroma"] == "422" else (H + 1) // 2
-    sizes = (W * H * bps, (W + 1) // 2 * Hc * bps, (W + 1) // 2 * Hc * bps)
+    Hc = H if want["chroma"] in ("422", "444") else (H + 1) // 2
+    Wc = W if want["chroma"] == "444" else (W + 1) // 2
+    sizes = (W * H * bps, Wc * Hc * bps, Wc * Hc * bps)
     with open(path, "rb") as f:
         raw = f.read()
     pos = raw.index(b"\n") + 1
@@ -469,7 +592,11 @@ def trace(dev, bs: bytes, name: str, wall_unprofiled: float) -> dict:
     }
 
 
-def main_path(dev, name: str, want: dict, kernel_names, traced: bool = True) -> dict:
+def main_path(dev, name: str, want: dict, traced: bool = True) -> dict:
+    """Decode a committed stream through GpuDecoder (launch counters set to
+    0 just before, read just after) and the CLI; every kernel of the
+    stream's format must have launched, one device kernel per call, and a
+    4:4:4 stream must have launched no chroma kernel."""
     from h264decode_tpu_torch.entropy import native
     from h264decode_tpu_torch.kernels import _build
     from h264decode_tpu_torch.utils.metrics import DecodeMetrics
@@ -482,8 +609,10 @@ def main_path(dev, name: str, want: dict, kernel_names, traced: bool = True) -> 
     _build.device_kernels.clear()
     native.calls.clear()
     frames, dt = decode_timed(dev, bs, metrics)
+    kernel_names = LUMA_KERNELS if want["chroma"] == "444" else ROW_KERNELS
     launches = {k: _build.launches[k] for k in kernel_names}
     kernels = {k: _build.device_kernels[k] for k in kernel_names}
+    absent = {k: _build.launches[k] for k in ROW_KERNELS if k not in kernel_names}
     native_slices = native.calls["decode_slice"]
     got = [md5s(fr.planes()) for fr in frames]
     if got != want["frames"]:
@@ -493,6 +622,8 @@ def main_path(dev, name: str, want: dict, kernel_names, traced: bool = True) -> 
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise RuntimeError(f"{name}: kernels never launched on the main path: {missing}")
+    if any(absent.values()):
+        raise RuntimeError(f"{name}: kernels of another format launched: {absent}")
     many = {k: kernels[k] / launches[k] for k in kernel_names if kernels[k] != launches[k]}
     if many:
         raise RuntimeError(f"{name}: persistent kernels launched other than once per call "
@@ -505,8 +636,8 @@ def main_path(dev, name: str, want: dict, kernel_names, traced: bool = True) -> 
     fps = len(frames) / wall
     log(f"{name}: {len(frames)} frames bit-exact vs libavcodec MD5s; walls {walls} s, "
         f"median -> {fps} frames/s (fence: torch.cuda.synchronize); wrapper calls "
-        f"{launches}; device kernels they launched {kernels}; native entropy slices "
-        f"{native_slices}")
+        f"{launches}; device kernels they launched {kernels}; other kernels' calls "
+        f"{absent}; native entropy slices {native_slices}")
     log(f"{name}: stage timers {json.dumps(metrics.summary())}")
     if traced:
         log(f"{name}: trace {json.dumps(trace(dev, bs, name, wall))}")
@@ -525,6 +656,60 @@ def main_path(dev, name: str, want: dict, kernel_names, traced: bool = True) -> 
     os.remove(y4m)
     log(f"{name}: CLI decode bit-exact ({res.stdout.splitlines()[0]})")
     return dict(launches=launches, kernels=kernels, fps=fps, frames=len(frames))
+
+
+def serve_phase(name: str, want: dict) -> float:
+    """`python -m h264decode_tpu_torch serve --port 0 --once` on the card,
+    fed the committed stream over one TCP connection: its Y4M must match
+    the committed MD5s. Returns the wall seconds from connecting to the
+    server's exit (the server's startup, before it listens, excluded)."""
+    import select
+    import socket
+
+    with open(os.path.join(DATA, name), "rb") as f:
+        bs = f.read()
+    out_dir = os.path.join(OUT, "serve")
+    os.makedirs(out_dir, exist_ok=True)
+    y4m = os.path.join(out_dir, "stream_0.y4m")
+    if os.path.exists(y4m):
+        os.remove(y4m)
+    # the server's stderr goes to a file, so that however much it writes it
+    # never blocks on a full pipe; it is read back on failure
+    err_path = os.path.join(out_dir, "serve_stderr.log")
+
+    def err_text() -> str:
+        with open(err_path) as f:
+            return f.read()
+
+    with open(err_path, "w") as err_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "h264decode_tpu_torch", "serve", "--port", "0", "--once",
+             "--out-dir", out_dir],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=err_f, text=True)
+    try:
+        if not select.select([proc.stdout], [], [], 300)[0]:
+            raise RuntimeError(f"serve: no 'listening on' line within 300 s:\n{err_text()}")
+        line = proc.stdout.readline()
+        if "listening on" not in line:
+            raise RuntimeError(f"serve: unexpected first line {line!r}:\n{err_text()}")
+        port = int(line.split("listening on ")[1].split(";")[0].rsplit(":", 1)[1])
+        t0 = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", port)) as conn:
+            conn.sendall(bs)
+        out = proc.communicate(timeout=600)[0]
+        wall = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"serve exited {proc.returncode}:\n{out}\n{err_text()}")
+    if y4m_md5s(y4m, want) != want["frames"]:
+        raise RuntimeError(f"serve of {name}: frames differ from libavcodec")
+    os.remove(y4m)
+    log(f"serve (port {port}, --once) of {name}: {len(want['frames'])} frames bit-exact vs "
+        f"libavcodec MD5s; {wall} s from connect to exit ({out.strip()})")
+    return wall
 
 
 def main() -> int:
@@ -554,26 +739,33 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {k}: {line.strip()}")
 
-    kernels = {}
+    kernels, base = {}, {}
     for cat, bd in FORMATS:
-        kernels.update(kernel_phase(dev, cat, bd))
+        if cat == 3:  # takes the 4:2:0 8-bit phase's luma inputs
+            kernels.update(planes_phase(dev, base[(1, 8)]))
+        else:
+            rows, base[(cat, bd)] = kernel_phase(dev, cat, bd)
+            kernels.update(rows)
+    log(f"kernel phases done at {time.time() - t0:.1f} s")
     with open(os.path.join(DATA, "smoke_md5.json")) as f:
         want = json.load(f)
     paths = {}
     for name, suffix, traced in STREAMS:
-        mp = paths[name] = main_path(dev, name, want[name], ROW_KERNELS, traced)
+        mp = paths[name] = main_path(dev, name, want[name], traced)
         if suffix is None:
             continue
         # the launches of the format's main-path stream fill its rows
-        for k in ROW_KERNELS:
+        for k in mp["launches"]:
             row = kernels[k + suffix]
             row["launches"] = mp["launches"][k]
             row["launch_stream"] = name
             row["inner_launches_per_call"] = mp["kernels"][k] / mp["launches"][k]
+    serve_s = serve_phase(SERVE_STREAM, want[SERVE_STREAM])
     log(f"setup+run {time.time() - t0:.1f} s")
     log(json.dumps({"kernels": list(kernels.values()),
                     "main_path": [{"stream": k, "frames_per_s": v["fps"],
-                                   "frames": v["frames"]} for k, v in paths.items()]}))
+                                   "frames": v["frames"]} for k, v in paths.items()],
+                    "serve": {"stream": SERVE_STREAM, "wall_s": serve_s}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

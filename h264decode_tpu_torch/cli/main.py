@@ -1,23 +1,31 @@
-"""Command-line interface: decode / probe.
+"""Command-line interface: decode / probe / serve.
 
 Usage:
   python -m h264decode_tpu_torch decode in.h264 out.y4m [--backend gpu|numpy]
       [--device cuda|cpu] [--no-deblock] [--metrics]
   python -m h264decode_tpu_torch probe in.h264 [--access-points]
+  python -m h264decode_tpu_torch serve [--host 127.0.0.1] [--port 8000]
+      [--out-dir .] [--once] [--backend gpu|numpy] [--device cuda|cpu]
 
 The gpu backend runs on the CUDA device unless --device cpu asks for the
-CPU (the plain torch versions of the kernels). `serve`, `sharded` and `gop`
-are not ported yet (ROADMAP.md, Queue A).
+CPU (the plain torch versions of the kernels). `serve` is a TCP ingest
+server: each connection's bytes are one Annex-B stream, decoded by a
+decoder of its own into <out-dir>/stream_<n>.y4m as the DPB outputs
+frames. The backends `sharded` and `gop` are not ported yet (ROADMAP.md,
+Queue A).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
+import os
+import socket
 import sys
+import threading
 import time
 
 _NOT_PORTED = {
-    "serve": "ROADMAP.md, Queue A item 4",
     "sharded": "ROADMAP.md, Queue A item 3",
     "gop": "ROADMAP.md, Queue A item 3",
 }
@@ -36,6 +44,14 @@ def _make_decoder(backend: str, apply_deblock: bool, device: str = "cuda",
     from ..pipeline.decoder import Decoder
 
     return Decoder(apply_deblock=apply_deblock, metrics=metrics)
+
+
+def _close(dec) -> None:
+    """Stop a decoder's worker threads (GpuDecoder has some; None and the
+    host Decoder have none)."""
+    close = getattr(dec, "close", None)
+    if close is not None:
+        close()
 
 
 def cmd_decode(args) -> int:
@@ -62,9 +78,7 @@ def cmd_decode(args) -> int:
                 frames = dec.decode_stream(data)
         dt = time.time() - t0
     finally:
-        close = getattr(dec, "close", None)
-        if close is not None:
-            close()
+        _close(dec)
     if args.output.endswith(".npz"):
         write_npz(args.output, frames)
     else:
@@ -131,11 +145,52 @@ def cmd_probe(args) -> int:
     return 0
 
 
+def _serve_connection(conn: socket.socket, dec, path: str, idx: int) -> None:
+    """Decode one connection's byte stream into the Y4M file `path`, frame
+    by frame as the DPB outputs them (memory stays bounded for any stream
+    length); the socket and the decoder are closed when it ends."""
+    from ..io.writers import write_y4m
 
-def cmd_not_ported(args) -> int:
-    raise NotImplementedError(
-        f"{args.cmd!r} is not ported yet ({_NOT_PORTED[args.cmd]})"
-    )
+    def chunks():
+        while True:
+            b = conn.recv(1 << 16)
+            if not b:
+                return
+            yield b
+
+    try:
+        n = write_y4m(path, dec.decode_iter(chunks()))
+    finally:
+        conn.close()
+        _close(dec)
+    print(f"[conn {idx}] {n} frames -> {path}", flush=True)
+
+
+def cmd_serve(args) -> int:
+    """TCP Annex-B ingest (h264decode_tpu/cli/main.py:146-186). Each
+    connection gets a decoder of its own, made before the connection is
+    accepted, so a missing CUDA device fails at startup. With --once the
+    server handles one connection and returns when its output is written."""
+    dec = _make_decoder(args.backend, True, args.device)
+    srv = socket.create_server((args.host, args.port))
+    host, port = srv.getsockname()[:2]
+    print(f"listening on {host}:{port}; writing to {args.out_dir}", flush=True)
+    try:
+        for idx in itertools.count():
+            conn, _ = srv.accept()
+            path = os.path.join(args.out_dir, f"stream_{idx}.y4m")
+            handler_args = (conn, dec, path, idx)
+            dec = None  # the handler closes it
+            if args.once:
+                _serve_connection(*handler_args)
+                return 0
+            threading.Thread(target=_serve_connection, args=handler_args, daemon=True).start()
+            dec = _make_decoder(args.backend, True, args.device)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        srv.close()
+        _close(dec)
 
 
 def main(argv=None) -> int:
@@ -164,8 +219,16 @@ def main(argv=None) -> int:
         help="list random-access points (IDR / recovery-point SEI)",
     )
     p.set_defaults(fn=cmd_probe)
-    s = sub.add_parser("serve", help="TCP Annex-B ingest server (not ported yet)")
-    s.set_defaults(fn=cmd_not_ported)
+    s = sub.add_parser("serve", help="TCP Annex-B ingest server")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000, help="0 picks a free port")
+    s.add_argument("--out-dir", default=".")
+    s.add_argument("--once", action="store_true",
+                   help="serve one connection, return when its output is written")
+    s.add_argument("--backend", choices=["gpu", "numpy"], default="gpu")
+    s.add_argument("--device", default="cuda",
+                   help="torch device of the gpu backend (cuda, cuda:N or cpu)")
+    s.set_defaults(fn=cmd_serve)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -91,7 +91,9 @@ def ring_from_jax(ring_y, ring_cb, ring_cr=None,
     chroma ring [R, 2, Hpc, Wpc//2+2] uint32 (Cb | Cr<<8 samples, two per
     word) -> uint8. Above 8 bits: luma uint32 words of two 16-bit samples,
     and separate Cb and Cr rings of the same kind (ring_cb, ring_cr) ->
-    int16. Phase 0 of each ring holds the plain columns (word w: columns
+    int16. 8-bit 4:4:4: ring_cb and ring_cr are luma-layout Cb and Cr
+    rings [R, 4, 2, Hp, Wp//2+2] uint16 -> [R, 2, 4, Hp, Wp] uint8 half-pel
+    stacks. Phase 0 of each ring holds the plain columns (word w: columns
     2w, 2w+1); 4:2:2 rings differ only in their height Hpc."""
     def unpair(r, bits):  # [..., H, Wk] words -> [..., H, 2*(Wk-2)] samples
         Wk = r.shape[-1]
@@ -99,7 +101,11 @@ def ring_from_jax(ring_y, ring_cb, ring_cr=None,
         return np.stack([lo, r >> bits], -1).reshape(*r.shape[:-1], 2 * Wk)[..., : 2 * (Wk - 2)]
 
     ry = np.asarray(ring_y)[:, :, 0]  # phase 0
-    if ry.dtype == np.uint16:  # 8-bit samples
+    if np.ndim(ring_cb) == 5:  # 4:4:4 (8-bit): Cb and Cr half-pel stacks
+        y = unpair(ry, 8).astype(np.uint8)
+        c = np.stack([unpair(np.asarray(r)[:, :, 0], 8) for r in (ring_cb, ring_cr)],
+                     1).astype(np.uint8)
+    elif ry.dtype == np.uint16:  # 8-bit samples
         y = unpair(ry, 8).astype(np.uint8)
         c16 = unpair(np.asarray(ring_cb)[:, 0], 16)  # [R, Hpc, Wpc] Cb | Cr<<8
         c = np.stack([c16 & 0xFF, c16 >> 8], 1).astype(np.uint8)

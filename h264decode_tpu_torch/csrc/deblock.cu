@@ -1,6 +1,8 @@
 // In-loop deblocking filter (H.264 spec 8.7) for Hopper: 4:2:0 and 4:2:2
 // (ChromaArrayType 1 and 2, also 0 = monochrome run as 4:2:0), uint8
-// samples at 8 bits and uint16 samples at 9 to 14 bits.
+// samples at 8 bits and uint16 samples at 9 to 14 bits, and 8-bit 4:4:4
+// (ChromaArrayType 3), whose Cb and Cr planes take the luma filter
+// (chromaStyleFilteringFlag = 0) in the luma kernel's launch.
 //
 // Replaces the Pallas TPU kernels of h264decode_tpu/kernels/deblock_pallas.py:
 //   deblock_luma   <- _make_luma_kernel   (deblock_pallas.py:211)
@@ -9,7 +11,11 @@
 // 8-bit only; the JAX package runs 4:2:2 and high bit depths through the
 // XLA wavefront deblock_frame_tpu(ch_h, bd_scale, mx) (kernels/deblock.py:111).
 // The plain version this file is held against is
-// h264decode_tpu_torch/kernels/deblock.py, which covers every format.
+// h264decode_tpu_torch/kernels/deblock.py, which covers every format. For
+// 4:4:4 the JAX package calls deblock_frame_pallas once per plane with dummy
+// chroma, each plane with its own QP grid (tpu_pipeline.py:482-496); here
+// deblock_luma filters the three planes in one launch and the chroma kernel
+// does not run.
 //
 // The format enters as template parameters, the sample type T (uint8_t or
 // uint16_t) and the chroma MB height CH_H (8 or 16), and as arguments:
@@ -27,9 +33,11 @@
 // hand-off between rows plus one MB's own latency) times 254 bounds it.
 //
 // Luma design (deblock_luma_rows<T>): one persistent launch per call, one
-// block of 16 threads per MB row, rows handed on through progress counters
-// in device memory (wavefront.cuh); MB (x, y) waits until row y-1 has
-// finished MB x+1. The block keeps a shared tile of its MB, the 4 columns to
+// block of 16 threads per MB row of each of P planes (P = 1, or 3 for 4:4:4:
+// the planes share bS, each has its own indexA / indexB grid from its own
+// QP), rows handed on through each plane's progress counters in device
+// memory (wavefront.cuh); MB (x, y) waits until row y-1 of its plane has
+// finished MB x+1. The planes' chains are independent and run side by side. The block keeps a shared tile of its MB, the 4 columns to
 // its left (carried over from the MB it filtered just before) and the 4 rows
 // above; only the rows above come from device memory after the wait. The
 // MB's own samples (no other block writes them before this block does) and
@@ -71,15 +79,15 @@
 // The C entry points take the caller's stream and report through
 // *n_launched how many kernels they launched (1 each).
 //
-// Data layout: planes y [H, W], cb/cr [Hc, Wc] (Hc = mb_h * CH_H) of T,
-// filtered in place. Edge parameters per 4x4 cell edge, int32 [H4, W4]
-// (chroma thresholds [2, H4, W4]), as kernels/deblock_prep_dev.py derives
-// them: bs_v/bs_h (and bs_hc for 4:2:2), luma indexA/indexB ia_*/ib_*,
-// chroma ca_*/cb_*. tabs = alpha[52], beta[52], tc0[52][3] (Table
+// Data layout: luma planes y [P, H, W], cb/cr [Hc, Wc] (Hc = mb_h * CH_H)
+// of T, filtered in place. Edge parameters per 4x4 cell edge, int32 [H4, W4]
+// (luma thresholds [P, H4, W4], chroma thresholds [2, H4, W4]), as
+// kernels/deblock_prep_dev.py derives them: bs_v/bs_h (and bs_hc for 4:2:2),
+// luma indexA/indexB ia_*/ib_*, chroma ca_*/cb_*. tabs = alpha[52], beta[52], tc0[52][3] (Table
 // 8-16/8-17), int32. bS must be 0 on the picture's boundary edges (the prep
 // guarantees it); the kernels never read outside the picture. Each entry
-// also takes sync, int32[mb_h + 1] of scratch, which it zeroes on the stream
-// before the launch.
+// also takes sync, int32[1 + P * mb_h] of scratch (P = 1 for chroma), which
+// it zeroes on the stream before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -207,24 +215,31 @@ __device__ __forceinline__ void store_line16(T* g, const T* tile_row) {
     reinterpret_cast<uint4*>(g)[k] = get16(reinterpret_cast<const uint8_t*>(tile_row) + 16 * k);
 }
 
-// Luma: one block of 16 threads per MB row. tile[r][c] holds picture sample
+// Luma: one block of 16 threads per MB row of one of n_planes planes (plane
+// p: samples y + p*H*W, thresholds ia_*/ib_* + p*H4*W4, bS shared).
+// tile[r][c] holds picture sample
 // (16*row - 4 + r, 16*mbx - 4 + c): rows 0..3 the rows above the MB
 // (columns 4..19 only), columns 0..3 the left MB's last 4 columns (rows
 // 4..19 only), rows/columns 4..19 the MB. prm[k][cell] holds the MB's 16
 // cells of bs_v, ia_v, ib_v, bs_h, ia_h, ib_h (cell = 4 * cell row + cell col).
 template <typename T>
 __global__ void __launch_bounds__(16) deblock_luma_rows(
-    T* y, const int* __restrict__ bs_v, const int* __restrict__ bs_h,
+    T* planes, const int* __restrict__ bs_v, const int* __restrict__ bs_h,
     const int* __restrict__ ia_v, const int* __restrict__ ib_v,
     const int* __restrict__ ia_h, const int* __restrict__ ib_h,
-    const int* __restrict__ tabs, int* sync, int mb_h, int mb_w, int bd_scale, int mx_arg) {
+    const int* __restrict__ tabs, int* sync, int n_planes, int mb_h, int mb_w, int bd_scale,
+    int mx_arg) {
   __shared__ __align__(16) T tile[20][20];
   __shared__ int prm[6][16];
   const int sc = scale_of<T>(bd_scale), mx = max_of<T>(mx_arg);
-  const int row = wavefront::take_row(sync);
+  const wavefront::RowTicket tk = wavefront::take_row(sync, n_planes);
+  const int row = tk.row;
   const int W = 16 * mb_w, W4 = 4 * mb_w;
+  T* y = planes + static_cast<size_t>(tk.plane) * (16 * mb_h) * W;
+  const int toff = tk.plane * (4 * mb_h) * W4;  // the plane's threshold grids
+  int* progress = sync + tk.plane * mb_h;       // the plane's counters
   const int t = threadIdx.x;
-  const int* grids[6] = {bs_v, ia_v, ib_v, bs_h, ia_h, ib_h};
+  const int* grids[6] = {bs_v, ia_v + toff, ib_v + toff, bs_h, ia_h + toff, ib_h + toff};
   const int cell0 = (4 * row + (t >> 2)) * W4 + (t & 3);  // thread t's cell of MB 0
   T* line = y + (16 * row + t) * W;                        // thread t's MB line
   // MB 0, one MB ahead: line t of its samples and cell t of its parameters
@@ -264,7 +279,7 @@ __global__ void __launch_bounds__(16) deblock_luma_rows(
       // 16x+12 .. 16x+15): hence the wait, before the top edge alone.
       const bool top = row > 0 && (prm[3][0] | prm[3][1] | prm[3][2] | prm[3][3]) > 0;
       if (top) {
-        wavefront::wait_row(sync, row, min(mbx + 2, mb_w));
+        wavefront::wait_row(progress, row, min(mbx + 2, mb_w));
         if (t < 4) put_line16(&tile[t][4], load_line16(y + (16 * row - 4 + t) * W + 16 * mbx));
       }
       __syncthreads();
@@ -283,7 +298,7 @@ __global__ void __launch_bounds__(16) deblock_luma_rows(
     }
     // the MB's last 4 columns are the next MB's left strip (own line only)
     copy_n<T, 4>(&tile[4 + t][0], &tile[4 + t][16]);
-    wavefront::publish_row(sync, row, mbx + 1);
+    wavefront::publish_row(progress, row, mbx + 1);
   }
 }
 
@@ -315,7 +330,7 @@ __global__ void __launch_bounds__(2 * CH_H) deblock_chroma_rows(
   constexpr int RV = CH_H / 4;  // chroma lines per luma cell row
   __shared__ __align__(16) T tile[2][2 + CH_H][16];
   const int sc = scale_of<T>(bd_scale), mx = max_of<T>(mx_arg);
-  const int row = wavefront::take_row(sync);
+  const int row = wavefront::take_row(sync, 1).row;
   const int Wc = 8 * mb_w, W4 = 4 * mb_w, H4 = 4 * mb_h;
   const int c = threadIdx.x / CH_H, t = threadIdx.x % CH_H, col = t & 7;
   T (*tl)[16] = tile[c];
@@ -414,28 +429,35 @@ __global__ void __launch_bounds__(2 * CH_H) deblock_chroma_rows(
 
 }  // namespace
 
-// sample_bytes: 1 (uint8_t samples, 8-bit) or 2 (uint16_t, 9 to 14 bits);
-// bd_scale = 1 << (bd - 8) and mx = (1 << bd) - 1 (read for 2-byte samples)
+// planes: the number of [H, W] planes in y and of [H4, W4] grids in ia_* /
+// ib_* (1, or 3 for 4:4:4); sample_bytes: 1 (uint8_t samples, 8-bit) or 2
+// (uint16_t, 9 to 14 bits); bd_scale = 1 << (bd - 8) and mx = (1 << bd) - 1
+// (read for 2-byte samples)
 extern "C" int deblock_luma(void* y, const void* bs_v, const void* bs_h, const void* ia_v,
                             const void* ib_v, const void* ia_h, const void* ib_h,
-                            const void* tabs, void* sync, int mb_h, int mb_w, int sample_bytes,
-                            int bd_scale, int mx, void* stream, int* n_launched) {
+                            const void* tabs, void* sync, int planes, int mb_h, int mb_w,
+                            int sample_bytes, int bd_scale, int mx, void* stream,
+                            int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
-  if (sample_bytes != 1 && sample_bytes != 2) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (mb_h + 1), s);
+  if ((sample_bytes != 1 && sample_bytes != 2) || planes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + planes * mb_h), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int *pv = static_cast<const int*>(bs_v), *ph = static_cast<const int*>(bs_h);
   const int *av = static_cast<const int*>(ia_v), *bv = static_cast<const int*>(ib_v);
   const int *ah = static_cast<const int*>(ia_h), *bh = static_cast<const int*>(ib_h);
   const int* tb = static_cast<const int*>(tabs);
   int* ps = static_cast<int*>(sync);
+  const int blocks = planes * mb_h;
   if (sample_bytes == 1)
-    deblock_luma_rows<uint8_t><<<mb_h, 16, 0, s>>>(static_cast<uint8_t*>(y), pv, ph, av, bv, ah,
-                                                   bh, tb, ps, mb_h, mb_w, bd_scale, mx);
+    deblock_luma_rows<uint8_t><<<blocks, 16, 0, s>>>(static_cast<uint8_t*>(y), pv, ph, av, bv,
+                                                     ah, bh, tb, ps, planes, mb_h, mb_w,
+                                                     bd_scale, mx);
   else
-    deblock_luma_rows<uint16_t><<<mb_h, 16, 0, s>>>(static_cast<uint16_t*>(y), pv, ph, av, bv,
-                                                    ah, bh, tb, ps, mb_h, mb_w, bd_scale, mx);
+    deblock_luma_rows<uint16_t><<<blocks, 16, 0, s>>>(static_cast<uint16_t*>(y), pv, ph, av,
+                                                      bv, ah, bh, tb, ps, planes, mb_h, mb_w,
+                                                      bd_scale, mx);
   *n_launched = 1;
   return static_cast<int>(cudaGetLastError());
 }

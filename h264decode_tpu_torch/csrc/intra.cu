@@ -1,6 +1,7 @@
 // Intra prediction + reconstruction (H.264 spec 8.3) for Hopper: 4:2:0 and
 // 4:2:2 (ChromaArrayType 1 and 2, also 0 = monochrome run as 4:2:0), bit
-// depths 8 to 14.
+// depths 8 to 14, and 8-bit 4:4:4 (ChromaArrayType 3), whose Cb and Cr
+// planes take the luma process (8.3.4.5) in the luma kernel's launch.
 //
 // Replaces the Pallas TPU kernels of h264decode_tpu/kernels/intra_pallas.py:
 //   intra_luma   <- _make_luma_kernel   (intra_pallas.py:440)
@@ -9,7 +10,10 @@
 // 8-bit only; the JAX package runs 4:2:2 and high bit depths through the
 // XLA wavefront intra_wavefront(ch_h, mid, mx) (kernels/intra.py:391). The
 // plain version this file is held against is
-// h264decode_tpu_torch/kernels/intra.py, which covers every format.
+// h264decode_tpu_torch/kernels/intra.py, which covers every format. For
+// 4:4:4 the JAX package calls intra_frame_pallas once per plane with dummy
+// chroma (tpu_pipeline.py:447-459); here intra_luma runs the three planes in
+// one launch and the chroma kernel does not run.
 //
 // The format enters as arguments: the Clip1 ceiling mx = (1 << bd) - 1 and
 // the DC fallback mid = 1 << (bd - 1) for both kernels, and the chroma MB
@@ -28,8 +32,12 @@
 // the chain's length bounds it, not bandwidth.
 //
 // Luma design (intra_luma_rows): one persistent launch per call, one block
-// of 256 threads per MB row, rows handed on through progress counters in
-// device memory (wavefront.cuh). The block keeps the reconstructed right
+// of 256 threads per MB row of each of P planes (P = 1, or 3 for 4:4:4,
+// whose planes share the MB modes and availability, 8.3.4.5), rows handed on
+// through each plane's progress counters in device memory (wavefront.cuh).
+// The planes' chains are independent and run side by side: at 256 threads
+// and 64 registers a thread, 4 blocks fit on an SM, so the 3 x 68 blocks of
+// a 1080p 4:4:4 frame are all resident on the H100's 132 SMs. The block keeps the reconstructed right
 // column of its last MB in shared memory as the next MB's left column; only
 // the 25 samples of the row above (columns -1..23) come from device memory,
 // after the wait. The next MB's parameter row and 16x16 residual depend on
@@ -52,13 +60,14 @@
 // The C entry points take the caller's stream and report through
 // *n_launched how many kernels they launched (1 each).
 //
-// Data layout (all int32, contiguous): planes y [H, W], cb/cr [Hc, Wc]
-// (Hc = mb_h * CH_H), updated in place; residual planes of the same shapes;
+// Data layout (all int32, contiguous): luma planes y [P, H, W], cb/cr
+// [Hc, Wc] (Hc = mb_h * CH_H), updated in place; residual planes of the same
+// shapes;
 // params [nMB, 20] = kind, i16mode, cmode, avail bits (1 left, 2 top,
 // 4 top-right, 8 top-left), modes4[16] (z-order; 8x8 modes in the first 4).
 // Samples outside the picture read as 0, as in the plain version. Each entry
-// also takes sync, int32[mb_h + 1] of scratch, which it zeroes on the
-// stream before the launch.
+// also takes sync, int32[1 + P * mb_h] of scratch (P = 1 for chroma), which
+// it zeroes on the stream before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,7 +141,9 @@ __device__ int pred_nxn(int mode, int x, int y, const int* t, const int* l, int 
   }
 }
 
-// Luma: one block of 256 threads per MB row; thread tid covers sample
+// Luma: one block of 256 threads per MB row of one of n_planes planes
+// (planes and residuals [n_planes, H, W], one params table for all); thread
+// tid covers sample
 // (tid >> 4, tid & 15) of the MB. sm[r][c] holds picture sample
 // (16*row - 1 + r, 16*mbx - 1 + c): row 0 is the row above (columns -1..23,
 // reaching into the top-right MB), column 0 the column to the left; rows
@@ -140,14 +151,19 @@ __device__ int pred_nxn(int mode, int x, int y, const int* t, const int* l, int 
 // parameter row.
 template <bool BD8>
 __global__ void __launch_bounds__(256) intra_luma_rows(
-    int* y, const int* __restrict__ res, const int* __restrict__ prm, int* sync,
-    int mb_h, int mb_w, int mid_arg, int mx_arg) {
+    int* planes, const int* __restrict__ resid, const int* __restrict__ prm, int* sync,
+    int n_planes, int mb_h, int mb_w, int mid_arg, int mx_arg) {
   const int mid = BD8 ? 128 : mid_arg, mx = BD8 ? 255 : mx_arg;
   __shared__ int sm[17][25];
   __shared__ int rs[16][16];
   __shared__ int sp[NPARAM];
-  const int row = wavefront::take_row(sync);
+  const wavefront::RowTicket tk = wavefront::take_row(sync, n_planes);
+  const int row = tk.row;
   const int W = mb_w * 16;
+  const size_t plane_off = static_cast<size_t>(tk.plane) * (16 * mb_h) * W;
+  int* y = planes + plane_off;
+  const int* res = resid + plane_off;
+  int* progress = sync + tk.plane * mb_h;  // this plane's counters
   const int tid = threadIdx.x, px = tid & 15, py = tid >> 4;
   const int* res_row = res + (16 * row + py) * W + px;
   const int* prm_row = prm + row * mb_w * NPARAM;
@@ -165,12 +181,12 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
     const int kind = sp[0];
     if (kind != K_I4 && kind != K_I8 && kind != K_I16) {
       have_left = false;  // this MB's samples stay as they are in y
-      wavefront::publish_row(sync, row, mbx + 1);
+      wavefront::publish_row(progress, row, mbx + 1);
       continue;
     }
     if (!have_left && tid < 16)  // left MB not intra: its samples are final in y
       sm[1 + tid][0] = mbx > 0 ? __ldcg(y + (16 * row + tid) * W + 16 * mbx - 1) : 0;
-    wavefront::wait_row(sync, row, min(mbx + 2, mb_w));
+    wavefront::wait_row(progress, row, min(mbx + 2, mb_w));
     if (tid < 25) {
       const int gc = 16 * mbx - 1 + tid;
       sm[0][tid] = (row > 0 && gc >= 0 && gc < W) ? __ldcg(y + (16 * row - 1) * W + gc) : 0;
@@ -263,7 +279,7 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
     y[(16 * row + py) * W + 16 * mbx + px] = sm[1 + py][1 + px];
     if (tid < 16) sm[1 + tid][0] = sm[1 + tid][16];  // right column -> next MB's left
     have_left = true;
-    wavefront::publish_row(sync, row, mbx + 1);
+    wavefront::publish_row(progress, row, mbx + 1);
   }
 }
 
@@ -283,7 +299,7 @@ __global__ void __launch_bounds__(16 * CH_H) intra_chroma_rows(
   constexpr int YC = CH_H / 2;  // plane-mode centre row offset: 4 (4:2:0), 8 (4:2:2)
   __shared__ int top[2][9];
   __shared__ int left[2][2][CH_H];
-  const int row = wavefront::take_row(sync);
+  const int row = wavefront::take_row(sync, 1).row;
   const int Wc = mb_w * 8;
   const int c = threadIdx.x / NC, i = threadIdx.x % NC, x = i & 7, yy = i >> 3;
   int* pl = c ? cr : cb;
@@ -360,20 +376,23 @@ __global__ void __launch_bounds__(16 * CH_H) intra_chroma_rows(
 
 }  // namespace
 
+// planes: the number of [H, W] planes in y and res (1, or 3 for 4:4:4)
 extern "C" int intra_luma(void* y, const void* res, const void* params, void* sync,
-                          int mb_h, int mb_w, int mid, int mx, void* stream,
+                          int planes, int mb_h, int mb_w, int mid, int mx, void* stream,
                           int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
-  cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (mb_h + 1), s);
+  if (planes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + planes * mb_h), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   int* py = static_cast<int*>(y);
   const int *pr = static_cast<const int*>(res), *prm = static_cast<const int*>(params);
   int* ps = static_cast<int*>(sync);
+  const int blocks = planes * mb_h;
   if (mx == 255)
-    intra_luma_rows<true><<<mb_h, 256, 0, s>>>(py, pr, prm, ps, mb_h, mb_w, mid, mx);
+    intra_luma_rows<true><<<blocks, 256, 0, s>>>(py, pr, prm, ps, planes, mb_h, mb_w, mid, mx);
   else
-    intra_luma_rows<false><<<mb_h, 256, 0, s>>>(py, pr, prm, ps, mb_h, mb_w, mid, mx);
+    intra_luma_rows<false><<<blocks, 256, 0, s>>>(py, pr, prm, ps, planes, mb_h, mb_w, mid, mx);
   *n_launched = 1;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,16 @@
 // Row wavefront over macroblocks in one persistent launch, for Hopper.
 //
 // A frame whose MB (x, y) depends on MBs of row y-1 up to some column runs
-// as one launch of mb_h blocks, one block per MB row, walking its row left
-// to right:
+// as one launch of P * mb_h blocks, one block per MB row of each of P
+// independent planes (P = 1, or 3 for the Y, Cb and Cr planes of 4:4:4),
+// walking its row left to right:
 //
-//   row = take_row(sync)                       // ticket, not blockIdx
+//   (plane, row) = take_row(sync, P)           // ticket, not blockIdx
+//   progress = sync + plane * mb_h             // the plane's counters
 //   for x in 0..mb_w-1:
-//     wait_row(sync, row, need(x))             // row-1 has finished MBs 0..need-1
+//     wait_row(progress, row, need(x))         // row-1 has finished MBs 0..need-1
 //     ... the MB ...
-//     publish_row(sync, row, x + 1)            // MBs 0..x of this row done
+//     publish_row(progress, row, x + 1)        // MBs 0..x of this row done
 //
 // The caller chooses need: min(x + 2, mb_w) where MB (x, y) needs row y-1's
 // MB x+1 (intra luma's top-right neighbour; deblocking, luma and chroma,
@@ -16,12 +18,16 @@
 // filter), x + 1 where it needs row y-1 only up to MB x (intra chroma,
 // which has no top-right neighbour).
 //
-// sync is int32[mb_h + 1], zeroed on the stream before the launch: sync[0]
-// is the ticket counter, sync[1 + y] the number of MBs row y has finished.
-// Rows are handed out in the order blocks start, so a block only ever waits
-// on a row that a block already running holds: no deadlock for any mb_h,
-// whether or not all blocks fit on the card at once (4K has 135 MB rows,
-// the H100 132 SMs).
+// sync is int32[1 + P * mb_h], zeroed on the stream before the launch:
+// sync[0] is the ticket counter, sync[1 + p * mb_h + y] the number of MBs
+// row y of plane p has finished. Ticket t is row t / P of plane t % P, so
+// the P planes' rows are handed out interleaved, row 0 of every plane
+// first. A block only ever waits on the row above in its own plane: row r
+// of plane p (ticket t = r * P + p) waits on row r-1 of plane p, ticket
+// t - P, which was handed out before t to a block already running. So there
+// is no deadlock for any P and mb_h, whether or not all blocks fit on the
+// card at once (4K has 135 MB rows, the H100 132 SMs), and the planes'
+// chains run side by side.
 //
 // Ordering: the block's writes, __syncthreads(), then thread 0 releases the
 // progress count (fence.acq_rel.gpu + relaxed store, as CUTLASS's
@@ -45,12 +51,17 @@ __device__ __forceinline__ void st_release(int* p, int v) {
                :: "l"(p), "r"(v) : "memory");
 }
 
-// The MB row this block walks: the next ticket (uniform over the block).
-__device__ __forceinline__ int take_row(int* sync) {
-  __shared__ int row;
-  if (threadIdx.x == 0) row = atomicAdd(sync, 1);
+// The (plane, MB row) this block walks, from the next ticket t: plane
+// t % planes, row t / planes (uniform over the block).
+struct RowTicket {
+  int plane, row;
+};
+
+__device__ __forceinline__ RowTicket take_row(int* sync, int planes) {
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
   __syncthreads();
-  return row;
+  return {ticket % planes, ticket / planes};
 }
 
 // A single wait this long (5 s of the global timer, whatever the SM clock)
@@ -68,9 +79,10 @@ __device__ __forceinline__ unsigned long long global_ns() {
 }
 
 // Block until row-1 has finished `need` MBs (row 0 waits for nothing).
-__device__ __forceinline__ void wait_row(const int* sync, int row, int need) {
+// progress = sync + plane * mb_h: the plane's counters sit at progress[1 + y].
+__device__ __forceinline__ void wait_row(const int* progress, int row, int need) {
   if (threadIdx.x == 0 && row > 0) {
-    const int* p = sync + row;  // progress of row - 1
+    const int* p = progress + row;  // progress of row - 1
     const unsigned long long t0 = global_ns();
     // a short, fixed back-off: the wait is on the chain's critical path, and
     // at most mb_h threads poll
@@ -83,9 +95,9 @@ __device__ __forceinline__ void wait_row(const int* sync, int row, int need) {
 }
 
 // After every thread of the block has written the MB: row has done `done` MBs.
-__device__ __forceinline__ void publish_row(int* sync, int row, int done) {
+__device__ __forceinline__ void publish_row(int* progress, int row, int done) {
   __syncthreads();
-  if (threadIdx.x == 0) st_release(sync + 1 + row, done);
+  if (threadIdx.x == 0) st_release(progress + 1 + row, done);
 }
 
 }  // namespace wavefront

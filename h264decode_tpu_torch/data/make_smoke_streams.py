@@ -17,6 +17,13 @@ Writes, next to this file:
                                  2 B-frames, 8 frames
   smoke_cif_gray.h264            352x288 High 4:0:0 (monochrome) 8-bit CABAC,
                                  8x8dct, 2 B-frames, 8 frames
+  smoke_1080p_high444.h264       1920x1080 High 4:4:4 Predictive 8-bit CABAC,
+                                 I/P/B with 2 B-frames, 8x8dct, preset fast,
+                                 QP 28, 8 frames (the 1080p luma with
+                                 full-size chroma of its own texture)
+  smoke_cif_high444.h264         352x288 High 4:4:4 Predictive 8-bit CABAC,
+                                 the CIF High options plus the JVT scaling
+                                 lists (cqm=jvt), 8 frames
   smoke_md5.json                 per stream: libavcodec's per-frame,
                                  per-plane MD5s (output order), its frame
                                  geometry, bit depth and chroma format.
@@ -82,6 +89,26 @@ def frames_cif(n: int = 8, h: int = 288, w: int = 352):
     return frames
 
 
+def with_444_chroma(frames, fade: float = 0.0, seed: int = 13):
+    """The frames' luma with full-size Cb and Cr of a texture of their own
+    (two oriented sine patterns with noise, panning by (2, 1) pixels per
+    frame; with a fade, scaled by 1 - fade * i and lifted by 4 * i like
+    frames_cif's luma), so the chroma planes code residuals, Intra4x4/8x8
+    modes and weights of their own."""
+    h, w = frames[0][0].shape
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    cb0 = 128 + 40 * np.sin(xx / 13.0 + yy / 29.0) + rng.normal(0, 4, (h, w))
+    cr0 = 128 + 35 * np.cos(yy / 11.0 - xx / 37.0) + rng.normal(0, 4, (h, w))
+    out = []
+    for i, (y, _, _) in enumerate(frames):
+        g, lift = 1.0 - fade * i, 4 * i if fade else 0
+        cb, cr = (np.clip(np.roll(np.roll(c, 2 * i, axis=1), i, axis=0) * g + lift, 0, 255)
+                  .astype(np.uint8) for c in (cb0, cr0))
+        out.append((y, cb, cr))
+    return out
+
+
 def to_10bit(frames):
     """8-bit content scaled to 10 bits (samples x 4), as uint16 planes."""
     return [tuple(p.astype(np.uint16) << 2 for p in planes) for planes in frames]
@@ -131,6 +158,15 @@ def main():
             [(y,) for y, _, _ in frames_cif()], qp=28, profile="high", csp="gray",
             cabac=True, bframes=2, preset="medium", gop=8, extra_x264="8x8dct=1",
         ), 8, "gray"),
+        "smoke_1080p_high444.h264": (lavc.encode_x264(
+            with_444_chroma(frames_1080p()), qp=28, profile="high444", csp="yuv444p",
+            cabac=True, bframes=2, preset="fast", gop=8, extra_x264="8x8dct=1",
+        ), 8, "444"),
+        "smoke_cif_high444.h264": (lavc.encode_x264(
+            with_444_chroma(frames_cif(), fade=0.06), qp=28, profile="high444",
+            csp="yuv444p", cabac=True, bframes=2, preset="medium", gop=8,
+            extra_x264=cif + ":cqm=jvt",
+        ), 8, "444"),
     }
     md5 = {}
     for name, (bs, bit_depth, chroma) in streams.items():

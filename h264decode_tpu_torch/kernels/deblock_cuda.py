@@ -6,9 +6,11 @@ the XLA wavefront the JAX package runs for 4:2:2 and high bit depths.
 kernels/deblock.py::deblock_frame, format arguments included: chroma MB
 height ch_h (8 or 16), bd_scale = 1 << (bd - 8) and mx = (1 << bd) - 1. The
 planes are uint8 at 8 bits and int16 above (the kernels read the same bits
-as uint16). A CUDA tensor goes to the hand-written kernels and nothing
-else; a CPU tensor takes the plain version, because the kernels do not run
-on the CPU.
+as uint16). `deblock_planes` is the 8-bit 4:4:4 counterpart: Y, Cb and Cr
+through the luma filter (chromaStyleFilteringFlag = 0), each plane with its
+own thresholds, in one launch of the luma kernel. A CUDA tensor goes to the
+hand-written kernels and nothing else; a CPU tensor takes the plain
+version, because the kernels do not run on the CPU.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def _load():
     if _lib is None:
         lib = _build.load("deblock")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.deblock_luma.argtypes = [vp] * 9 + [ci] * 5 + [vp, vp]
+        lib.deblock_luma.argtypes = [vp] * 9 + [ci] * 6 + [vp, vp]
         lib.deblock_luma.restype = ci
         lib.deblock_chroma.argtypes = [vp] * 10 + [ci] * 6 + [vp, vp]
         lib.deblock_chroma.restype = ci
@@ -73,23 +75,32 @@ def _check_plane(t: torch.Tensor, shape, dt: torch.dtype, line: int, name: str, 
 
 def deblock_luma(y: torch.Tensor, prep: dict, mb_h: int, mb_w: int, bd_scale: int = 1,
                  mx: int = 255) -> None:
-    """Filter luma plane y [H, W] in place: uint8 at 8 bits, int16 above
-    (one launch: a persistent row wavefront; its sample rows are read and
-    written 16 samples at a time, so y must start on a 16-byte boundary at
-    uint8 and a 32-byte one at int16). A hand-off between rows that stalls
-    for seconds traps in the kernel (csrc/wavefront.cuh); a trap is a
-    sticky CUDA error, so every later CUDA call of the process fails."""
+    """Filter luma plane y [H, W] in place, or the P planes y [P, H, W] that
+    share prep's bS grids, each with its own indexA / indexB grid (prep's
+    ia_* / ib_* then [P, H4, W4]; 4:4:4's Y, Cb and Cr): uint8 at 8 bits,
+    int16 above (one launch: a persistent row wavefront over every plane's
+    rows; sample rows are read and written 16 samples at a time, so y must
+    start on a 16-byte boundary at uint8 and a 32-byte one at int16). A
+    hand-off between rows that stalls for seconds traps in the kernel
+    (csrc/wavefront.cuh); a trap is a sticky CUDA error, so every later CUDA
+    call of the process fails."""
     dt, nb = _sample_format(bd_scale, mx)
-    _check_plane(y, (16 * mb_h, 16 * mb_w), dt, 16, "y", "luma")
+    H4, W4 = 4 * mb_h, 4 * mb_w
+    planes = 1 if y.dim() == 2 else y.shape[0]
+    lead = () if y.dim() == 2 else (planes,)
+    _check_plane(y, lead + (16 * mb_h, 16 * mb_w), dt, 16, "y", "luma")
+    for n in ("bs_v", "bs_h"):
+        _build.check_tensor(prep[n], (H4, W4), torch.int32, n)
+    for n in ("ia_v", "ib_v", "ia_h", "ib_h"):
+        _build.check_tensor(prep[n], lead + (H4, W4), torch.int32, n)
     names = ("bs_v", "bs_h", "ia_v", "ib_v", "ia_h", "ib_h")
-    for n in names:
-        _build.check_tensor(prep[n], (4 * mb_h, 4 * mb_w), torch.int32, n)
-    # ticket counter + one progress count per MB row, per call so that
-    # concurrent calls never share it; the C entry zeroes it on the stream
-    sync = torch.empty(mb_h + 1, dtype=torch.int32, device=y.device)
+    # ticket counter + one progress count per plane and MB row, per call so
+    # that concurrent calls never share it; the C entry zeroes it on the
+    # stream
+    sync = torch.empty(1 + planes * mb_h, dtype=torch.int32, device=y.device)
     _build.launch("deblock_luma", _load().deblock_luma, y.data_ptr(),
                   *(prep[n].data_ptr() for n in names), _tables(y.device).data_ptr(),
-                  sync.data_ptr(), mb_h, mb_w, nb, bd_scale, mx,
+                  sync.data_ptr(), planes, mb_h, mb_w, nb, bd_scale, mx,
                   torch.cuda.current_stream(y.device).cuda_stream)
 
 
@@ -134,3 +145,47 @@ def deblock_frame(y, cb, cr, prep: dict, mb_h: int, mb_w: int, ch_h: int = 8,
     deblock_luma(y, prep, mb_h, mb_w, bd_scale, mx)
     deblock_chroma(cb, cr, prep, mb_h, mb_w, ch_h, bd_scale, mx)
     return y, cb, cr
+
+
+# each luma threshold grid of a prep -> the chroma grid [2, H4, W4] that
+# holds Cb's and Cr's luma-style thresholds in 8-bit 4:4:4
+_THRESH_444 = {"ia_v": "ca_v", "ib_v": "cb_v", "ia_h": "ca_h", "ib_h": "cb_h"}
+
+
+def prep_444(prep: dict) -> dict:
+    """The edge parameters of an 8-bit 4:4:4 frame's Y, Cb and Cr from one
+    deblock_prep_device output (made with the PPS's chroma QP offsets): bS
+    shared, ia_* / ib_* stacked to [3, H4, W4] from Y's ia_* / ib_* and Cb's
+    and Cr's chroma thresholds ca_* / cb_*, which are the luma-style indexA
+    / indexB of their QPc (Table 8-15 of QPY + offset), what the JAX
+    package derives per plane from each plane's QP grid with offsets (0, 0)
+    (tpu_pipeline.py:463-496)."""
+    return {**prep, **{k: torch.cat([prep[k][None], prep[c]]) for k, c in _THRESH_444.items()}}
+
+
+def plane_prep(prep: dict, p: int) -> dict:
+    """Plane p's single-plane prep of a prep whose ia_* / ib_* are
+    [P, H4, W4] (views, no copies)."""
+    return {**prep, **{k: prep[k][p] for k in _THRESH_444}}
+
+
+def deblock_planes_plain(planes, prep: dict, mb_h: int, mb_w: int) -> torch.Tensor:
+    """The plain version of deblock_planes: deblock_frame once per plane
+    with dummy 4:2:0 chroma, keeping its luma output, as the JAX package's
+    4:4:4 path computes it (tpu_pipeline.py:487-496)."""
+    dummy = torch.zeros((8 * mb_h, 8 * mb_w), dtype=torch.uint8, device=planes.device)
+    return torch.stack([deblock_frame_plain(pl, dummy, dummy, plane_prep(prep, p), mb_h, mb_w)[0]
+                        for p, pl in enumerate(planes)])
+
+
+def deblock_planes(planes, prep: dict, mb_h: int, mb_w: int) -> torch.Tensor:
+    """8-bit 4:4:4 deblocking (chromaStyleFilteringFlag = 0: Cb and Cr take
+    the luma filter): planes [P, H, W] uint8 (4:4:4's Y, Cb, Cr) and a prep
+    whose bS grids they share and whose ia_* / ib_* are [P, H4, W4], one per
+    plane (prep_444) -> new filtered uint8 [P, H, W]. On a CUDA tensor, one
+    launch of the luma kernel over the P planes."""
+    if not planes.is_cuda:
+        return deblock_planes_plain(planes, prep, mb_h, mb_w)
+    out = planes.to(torch.uint8, copy=True).contiguous()
+    deblock_luma(out, prep, mb_h, mb_w)
+    return out

@@ -4,9 +4,10 @@ Counterpart of h264decode_tpu/kernels/intra_pallas.py (4:2:0 8-bit) and of
 the XLA wavefront the JAX package runs for 4:2:2 and high bit depths.
 `intra_frame` keeps intra_wavefront's contract (kernels/intra.py), format
 arguments included: chroma MB height ch_h (8 or 16), DC fallback mid and
-Clip1 ceiling mx. A CUDA tensor goes to the hand-written kernels and
-nothing else; a CPU tensor takes the plain version, because the kernels do
-not run on the CPU.
+Clip1 ceiling mx. `intra_planes` is the 8-bit 4:4:4 counterpart: Y, Cb and
+Cr through the luma process, in one launch of the luma kernel. A CUDA
+tensor goes to the hand-written kernels and nothing else; a CPU tensor
+takes the plain version, because the kernels do not run on the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def _load():
     if _lib is None:
         lib = _build.load("intra")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.intra_luma.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
+        lib.intra_luma.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
         lib.intra_luma.restype = ci
         lib.intra_chroma.argtypes = [vp] * 6 + [ci] * 5 + [vp, vp]
         lib.intra_chroma.restype = ci
@@ -63,20 +64,25 @@ def _check_format(mid: int, mx: int, ch_h: int = 8):
 
 def intra_luma(y: torch.Tensor, ry: torch.Tensor, params: torch.Tensor,
                mb_h: int, mb_w: int, mid: int = 128, mx: int = 255) -> None:
-    """Reconstruct the intra MBs of luma plane y [H, W] int32 in place (one
-    launch: a persistent row wavefront, csrc/wavefront.cuh). A hand-off
+    """Reconstruct the intra MBs of luma plane y [H, W] int32, or of the P
+    planes y [P, H, W] that share one params table (4:4:4's Y, Cb and Cr),
+    in place with residuals ry of y's shape (one launch: a persistent row
+    wavefront over every plane's rows, csrc/wavefront.cuh). A hand-off
     between rows that stalls for seconds traps in the kernel; a trap is a
     sticky CUDA error, so every later CUDA call of the process fails."""
     H, W = 16 * mb_h, 16 * mb_w
     _check_format(mid, mx)
-    _check(y, (H, W), "y")
-    _check(ry, (H, W), "resid_y")
+    planes = 1 if y.dim() == 2 else y.shape[0]
+    shape = (H, W) if y.dim() == 2 else (planes, H, W)
+    _check(y, shape, "y")
+    _check(ry, shape, "resid_y")
     _check(params, (mb_h * mb_w, NPARAM), "params")
-    # ticket counter + one progress count per MB row, per call so that
-    # concurrent calls never share it; the C entry zeroes it on the stream
-    sync = torch.empty(mb_h + 1, dtype=torch.int32, device=y.device)
+    # ticket counter + one progress count per plane and MB row, per call so
+    # that concurrent calls never share it; the C entry zeroes it on the
+    # stream
+    sync = torch.empty(1 + planes * mb_h, dtype=torch.int32, device=y.device)
     _build.launch("intra_luma", _load().intra_luma, y.data_ptr(), ry.data_ptr(),
-                  params.data_ptr(), sync.data_ptr(), mb_h, mb_w, mid, mx,
+                  params.data_ptr(), sync.data_ptr(), planes, mb_h, mb_w, mid, mx,
                   torch.cuda.current_stream(y.device).cuda_stream)
 
 
@@ -117,3 +123,34 @@ def intra_frame(y, cb, cr, resid_y, resid_cb, resid_cr, kind, modes4, i16mode,
     intra_chroma(cb, cr, resid_cb.to(i32).contiguous(), resid_cr.to(i32).contiguous(),
                  params, mb_h, mb_w, ch_h, mid, mx)
     return y, cb, cr
+
+
+def intra_planes_plain(planes, resid, kind, modes4, i16mode, avl, avt, avtr, avtl,
+                       mb_h: int, mb_w: int) -> torch.Tensor:
+    """The plain version of intra_planes: intra_wavefront once per plane
+    with dummy 4:2:0 chroma and chroma mode 0, keeping its luma output, as
+    the JAX package's 4:4:4 path computes it (tpu_pipeline.py:447-459)."""
+    dummy = torch.zeros((8 * mb_h, 8 * mb_w), dtype=torch.int32, device=planes.device)
+    cmode = torch.zeros_like(i16mode)
+    return torch.stack([
+        intra_wavefront(p, dummy, dummy, r, dummy, dummy, kind, modes4, i16mode, cmode,
+                        avl, avt, avtr, avtl, mb_h, mb_w)[0]
+        for p, r in zip(planes, resid)
+    ])
+
+
+def intra_planes(planes, resid, kind, modes4, i16mode, avl, avt, avtr, avtl,
+                 mb_h: int, mb_w: int) -> torch.Tensor:
+    """8-bit 4:4:4 intra (spec 8.3.4.5: Cb and Cr take the luma process with
+    the MB's luma modes): planes and resid [3, H, W] (Y, Cb, Cr) -> new
+    int32 [3, H, W] with every intra MB reconstructed. On a CUDA tensor, one
+    launch of the luma kernel over the three planes."""
+    if not planes.is_cuda:
+        return intra_planes_plain(planes, resid, kind, modes4, i16mode, avl, avt, avtr, avtl,
+                                  mb_h, mb_w)
+    i32 = torch.int32
+    params = pack_params(kind, modes4, i16mode, torch.zeros_like(i16mode), avl, avt, avtr,
+                         avtl)
+    out = planes.to(i32, copy=True).contiguous()
+    intra_luma(out, resid.to(i32).contiguous(), params, mb_h, mb_w)
+    return out

@@ -6,15 +6,19 @@ residual transforms (kernels/transform) -> motion compensation from the DPB
 ring (kernels/mc) -> intra (the CUDA kernels of kernels/intra_cuda) ->
 bS and thresholds (kernels/deblock_prep_dev) -> deblocking (the CUDA
 kernels of kernels/deblock_cuda) -> half-pel planes into the ring slot ->
-one packed output plane [H + Hc, W] (Y on top, Cb | Cr below).
+one packed output plane [H + Hc, W] (Y on top, Cb | Cr below; 4:4:4:
+[3H, W], Y, Cb, Cr stacked).
 
 Formats on the device path, as in the JAX package: ChromaArrayType 1 (4:2:0)
 and 2 (4:2:2, full-height chroma, Hc = H) and monochrome (run as 4:2:0;
 its chroma planes hold the mid-gray convention), at one bit depth bd of
-8..14 for luma and chroma. Samples are uint8 at 8 bits and int16 above (the
-same bits as uint16; torch has no CPU arithmetic on uint16), and the host
-sees uint16 planes. High-bit-depth 4:4:4 and mixed luma/chroma depths
-decode on the host oracle; 8-bit 4:4:4 is not ported yet.
+8..14 for luma and chroma, and 8-bit ChromaArrayType 3 (4:4:4), whose Cb
+and Cr run the luma processes (_frame_core_444: per-component residuals,
+luma MC from their own half-pel stacks, luma intra and the luma deblocking
+filter, each kernel in one launch over the three planes). Samples are uint8
+at 8 bits and int16 above (the same bits as uint16; torch has no CPU
+arithmetic on uint16), and the host sees uint16 planes. High-bit-depth
+4:4:4 and mixed luma/chroma depths decode on the host oracle.
 
 The host side (GpuDecoder) drives entropy decoding into FrameTensors,
 builds the narrow per-frame wire, uploads it through one pinned staging
@@ -41,10 +45,10 @@ import torch
 from .. import convert
 from ..kernels import mc as mc_k
 from ..kernels import transform as tr_k
-from ..kernels.deblock_cuda import deblock_frame
+from ..kernels.deblock_cuda import deblock_frame, deblock_planes, prep_444
 from ..kernels.deblock_prep_dev import _mb_to_cells, deblock_prep_device
 from ..kernels.intra import K_I4, K_I8, K_I16
-from ..kernels.intra_cuda import intra_frame
+from ..kernels.intra_cuda import intra_frame, intra_planes
 from ..kernels.mc import sample_dtype
 from ..syntax.pps import PPS
 from ..syntax.sps import SPS
@@ -58,10 +62,6 @@ from ..tensors.frame_tensors import (
 from ..utils.metrics import DecodeMetrics
 from .decoder import Decoder
 from .dpb import Picture
-from .reference_recon import CHROMA_QP_TABLE as _QPC_TAIL
-
-# Table 8-15: QPc from clipped qPI (for the 4:4:4 path of a later slice)
-_QPC_TAB = np.concatenate([np.arange(30), np.asarray(_QPC_TAIL)]).astype(np.int32)
 
 # weight tables cover ref-list indices 0..R_W-1; the size grows (pow2) when
 # a stream uses longer lists
@@ -210,21 +210,100 @@ def _frame_core(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
     return base_y.to(sdt), base_cb.to(sdt), base_cr.to(sdt)
 
 
-def _deblock_core(planes, inp: dict, mb_h: int, mb_w: int, cat: int = 1, bd: int = 8):
-    """Edge-parameter derivation + the deblocking kernels. Picture identity
-    for bS is the ring slot (equal slot == same reference picture). The
-    thresholds take the raw QPY; alpha, beta and tC0 scale by bd_scale."""
-    y, cb, cr = planes
+def _deblock_prep(inp: dict, mb_h: int, mb_w: int, cat: int = 1) -> dict:
+    """Edge parameters of the frame: bS (picture identity is the ring slot:
+    equal slot == same reference picture) and the thresholds, luma's from
+    the raw QPY and chroma's from QPc with the PPS's offsets."""
     n = mb_h * mb_w
-    prep = deblock_prep_device(
+    return deblock_prep_device(
         inp["mb_cls"], inp["qp"], inp["is_t8"], inp["slice_arr"], inp["disable"],
         inp["aoff"], inp["boff"], inp["nnz_grid"],
-        torch.zeros((n, 2, 4), dtype=_I32, device=y.device),
+        torch.zeros((n, 2, 4), dtype=_I32, device=inp["qp"].device),
         inp["mv_cells"], inp["qp_offsets"], mb_h, mb_w, slot_cells=inp["slot_cells"],
         chroma_all_h_edges=cat == 2,
     )
-    return deblock_frame(y, cb, cr, prep, mb_h, mb_w, 16 if cat == 2 else 8,
-                         1 << (bd - 8), (1 << bd) - 1)
+
+
+def _deblock_core(planes, inp: dict, mb_h: int, mb_w: int, cat: int = 1, bd: int = 8):
+    """Edge-parameter derivation + the deblocking kernels; alpha, beta and
+    tC0 scale by bd_scale."""
+    y, cb, cr = planes
+    return deblock_frame(y, cb, cr, _deblock_prep(inp, mb_h, mb_w, cat), mb_h, mb_w,
+                         16 if cat == 2 else 8, 1 << (bd - 8), (1 << bd) - 1)
+
+
+def _comp_qp_grids(inp: dict):
+    """Per-MB QPc of Cb and Cr (Table 8-15 with the PPS's offsets, 8 bits),
+    what the 4:4:4 luma-process chain dequantizes and deblocks them with."""
+    cb_off, cr_off = inp["qp_offsets"]
+    return tr_k.chroma_qp(inp["qp"], cb_off), tr_k.chroma_qp(inp["qp"], cr_off)
+
+
+def _frame_core_444(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
+                    has_intra: bool = True, need_s2: bool = True) -> torch.Tensor:
+    """The 8-bit ChromaArrayType 3 pixel path before deblocking (spec
+    7.3.5.3.1, 8.3.4.5, 8.4.2.2): Cb and Cr run the luma processes, each
+    with its own QPc and scaling lists, luma quarter-pel MC from its own
+    half-pel stacks with the chroma weights, and luma intra (one launch over
+    the three planes). Returns uint8 [3, H, W] (Y, Cb, Cr)."""
+    H, W = mb_h * 16, mb_w * 16
+    n = mb_h * mb_w
+    dev = inp["qp"].device
+    qp_cb, qp_cr = _comp_qp_grids(inp)
+    zero8 = torch.zeros((n, 4, 64), dtype=_I32, device=dev)
+    c8 = inp["c444_8x8"] if has_l8 else torch.zeros((n, 2, 4, 64), dtype=_I32, device=dev)
+
+    def residual(ac, dc, ac8, qp, ls4, ls8):
+        return tr_k.luma_residual_plane(ac, dc, ac8, qp, inp["is_i16"], inp["is_t8"],
+                                        inp["is_intra"], ls4, ls8, mb_h, mb_w)
+
+    resid = torch.stack([
+        residual(inp["luma_ac"], inp["luma_dc"], inp["luma8_ac"] if has_l8 else zero8,
+                 inp["qp"], inp["ls4_y"], inp["ls8_y"]),
+        residual(inp["c444_ac"][:, 0], inp["c444_dc"][:, 0], c8[:, 0], qp_cb,
+                 inp["ls4_cb"], inp["ls8_cb"]),
+        residual(inp["c444_ac"][:, 1], inp["c444_dc"][:, 1], c8[:, 1], qp_cr,
+                 inp["ls4_cr"], inp["ls8_cr"]),
+    ])
+    slot, mv = inp["slot_cells"], inp["mv_cells"]
+    use0_cell = slot[0] >= 0
+    use1_cell = slot[1] >= 0
+    bi_cell = use0_cell & use1_cell
+    luma_w, chroma_w = _weight_cells(inp, mb_h, mb_w)
+    u0, u1 = _rep(use0_cell, 4, 4), _rep(use1_cell, 4, 4)
+    # the chroma ring [R, 2, 4, Hp, Wp] viewed as 2R half-pel stacks: Cb of
+    # slot s at 2s, Cr at 2s + 1 (a view; the MC gathers read it flat)
+    ring_y, ring_c = inp["ref_luma"], inp["ref_chroma"]
+    ring_cs = ring_c.reshape(-1, *ring_c.shape[2:])
+    inter = []
+    for comp in range(3):
+        if comp == 0:
+            ring, s0, s1, wts = ring_y, slot[0], slot[1], luma_w(bi_cell)
+        else:  # an unused slot (-1) maps below 0: luma_mc clamps it, the masks drop it
+            ring, wts = ring_cs, chroma_w(comp - 1, bi_cell)
+            s0, s1 = 2 * slot[0] + comp - 1, 2 * slot[1] + comp - 1
+        p0 = mc_k.luma_mc(ring, s0, mv[0], H, W, need_s2)
+        p1 = mc_k.luma_mc(ring, s1, mv[1], H, W, need_s2)
+        w0, o0, w1, o1, lwd = (_rep(a, 4, 4) for a in wts)
+        pred = mc_k.weighted_combine(p0, p1, u0, u1, w0, o0, w1, o1, lwd)
+        inter.append(torch.clamp(pred + resid[comp], 0, 255))
+    im = _rep((~inp["is_intra"]).reshape(mb_h, mb_w), 16, 16)
+    zero = torch.zeros((), dtype=_I32, device=dev)
+    bases = torch.stack([torch.where(im, pl, inp[k] if has_pcm else zero)
+                         for pl, k in zip(inter, ("pcm_y", "pcm_cb", "pcm_cr"))])
+    if has_intra:
+        bases = intra_planes(bases, resid, inp["kind"], inp["modes4"], inp["i16mode"],
+                             inp["avl"], inp["avt"], inp["avtr"], inp["avtl"], mb_h, mb_w)
+    return bases.to(torch.uint8)
+
+
+def _deblock_core_444(planes: torch.Tensor, inp: dict, mb_h: int, mb_w: int) -> torch.Tensor:
+    """ChromaArrayType 3 deblocking (chromaStyleFilteringFlag = 0): the luma
+    filter on Y, Cb and Cr in one launch, with the bS of luma's coded
+    status and motion on all three (as the JAX package derives it, from
+    the luma nnz alone) and each plane's thresholds from its own QP."""
+    prep = _deblock_prep(inp, mb_h, mb_w)
+    return deblock_planes(planes, prep_444(prep), mb_h, mb_w)
 
 
 def _densify_residuals(inp: dict, n: int, has_l8: bool):
@@ -291,13 +370,23 @@ def frame_step(wire: dict, ring_y: torch.Tensor, ring_c: torch.Tensor, dyn: dict
     half-pel planes into ring slot `slot` (in place) -> packed output.
 
     flags = (has_l8, has_pcm, apply_deblock, sparse, has_intra, need_s2,
-    cat, bd): cat is the ChromaArrayType the frame runs as (1, or 2 for
-    4:2:2), bd the bit depth. ring_y: [R, 4, H+2*PAD, W+2*PAD] {G, b, h, j}
-    stacks; ring_c: [R, 2, Hc+2*PAD, Wc+2*PAD] padded Cb/Cr (Hc = H/2, or H
-    for 4:2:2), both in the sample dtype (uint8 at 8 bits, int16 above).
-    Returns the packed [H + Hc, W] plane in the sample dtype."""
+    cat, bd): cat is the ChromaArrayType the frame runs as (1, 2 for 4:2:2,
+    or 3 for 8-bit 4:4:4), bd the bit depth. ring_y: [R, 4, H+2*PAD,
+    W+2*PAD] {G, b, h, j} stacks; ring_c: [R, 2, Hc+2*PAD, Wc+2*PAD] padded
+    Cb/Cr (Hc = H/2, or H for 4:2:2), or for 4:4:4 [R, 2, 4, H+2*PAD,
+    W+2*PAD] Cb and Cr half-pel stacks, both in the sample dtype (uint8 at 8
+    bits, int16 above). Returns the packed [H + Hc, W] plane ([3H, W] for
+    4:4:4) in the sample dtype."""
     has_l8, has_pcm, apply_db, sparse, has_intra, need_s2, cat, bd = flags
     inp = _prepare_inp(wire, dyn, ring_y, ring_c, mb_h, mb_w, flags)
+    if cat == 3:
+        planes = _frame_core_444(inp, mb_h, mb_w, has_l8, has_pcm, has_intra, need_s2)
+        if apply_db:
+            planes = _deblock_core_444(planes, inp, mb_h, mb_w)
+        ring_y[slot] = mc_k.half_pel_planes(planes[0])
+        ring_c[slot, 0] = mc_k.half_pel_planes(planes[1])
+        ring_c[slot, 1] = mc_k.half_pel_planes(planes[2])
+        return planes.reshape(3 * mb_h * 16, mb_w * 16)
     y, cb, cr = _frame_core(inp, mb_h, mb_w, has_l8, has_pcm, has_intra, need_s2, cat, bd)
     if apply_db:
         y, cb, cr = _deblock_core((y, cb, cr), inp, mb_h, mb_w, cat, bd)
@@ -309,7 +398,8 @@ def frame_step(wire: dict, ring_y: torch.Tensor, ring_c: torch.Tensor, dyn: dict
 
 class _PackedFrame:
     """One decoded frame as a single packed buffer [H + Hc, W] (Y on top;
-    Cb | Cr side by side below; Hc = H/2, or H for 4:2:2). On the GPU the
+    Cb | Cr side by side below; Hc = H/2, or H for 4:2:2), or [3H, W] for
+    4:4:4 (Y, Cb, Cr full-size, stacked). On the GPU the
     device->host copy into pinned memory is enqueued at dispatch behind
     `done` (frame computed) and ends at `copied`; every read waits for
     `copied` first. int16 samples (above 8 bits) come out as uint16 planes."""
@@ -348,7 +438,10 @@ class _PackedFrame:
             if self._metrics is not None:
                 self._metrics.count("bytes_down", a.nbytes)
             H, W = self._H, self._W
-            self._planes = (a[:H], a[H:, : W // 2], a[H:, W // 2 :])
+            if a.shape[0] == 3 * H:  # 4:4:4
+                self._planes = (a[:H], a[H : 2 * H], a[2 * H :])
+            else:
+                self._planes = (a[:H], a[H:, : W // 2], a[H:, W // 2 :])
             self._host = None
         return self._planes
 
@@ -604,10 +697,6 @@ class GpuDecoder(Decoder):
                 or (sps.chroma_array_type == 3 and sps.bit_depth_luma > 8))
 
     def _submit_reconstruct(self, ft, sps, pps, slices, ref_lists, weight_ctx, poc):
-        if sps.chroma_array_type == 3 and not self._oracle_format(sps):
-            raise NotImplementedError(
-                "8-bit 4:4:4 is not on the GPU path yet (ROADMAP.md, Queue A item 2)"
-            )
         if self._recon_exec is None:
             raise RuntimeError("GpuDecoder: decoding after close()")
         cur_uid = self.uid_counter  # snapshot: main increments it right after
@@ -636,23 +725,29 @@ class GpuDecoder(Decoder):
 
     @staticmethod
     def _ring_geom_of(sps: SPS):
-        """(slots, H, W, chroma height, sample dtype) of the DPB rings."""
+        """(luma ring shape, chroma ring shape, sample dtype) of the DPB
+        rings, max_num_ref_frames + 1 slots each: {G, b, h, j} luma stacks
+        [R, 4, H+2P, W+2P], and padded Cb/Cr planes [R, 2, Hc+2P, W/2+2P]
+        (Hc = H/2, or H for 4:2:2) or, for 4:4:4, Cb and Cr half-pel stacks
+        [R, 2, 4, H+2P, W+2P] (JAX: tpu_pipeline.py:1109-1116)."""
         n_refs = max(1, sps.max_num_ref_frames + 1)
         H, W = sps.frame_height_in_mbs * 16, sps.pic_width_in_mbs * 16
-        Hc = H if sps.chroma_array_type == 2 else H // 2
-        return n_refs, H, W, Hc, sample_dtype((1 << sps.bit_depth_luma) - 1)
+        P = mc_k.PAD
+        luma = (n_refs, 4, H + 2 * P, W + 2 * P)
+        if sps.chroma_array_type == 3:
+            chroma = (n_refs, 2, *luma[1:])
+        else:
+            Hc = H if sps.chroma_array_type == 2 else H // 2
+            chroma = (n_refs, 2, Hc + 2 * P, W // 2 + 2 * P)
+        return luma, chroma, sample_dtype((1 << sps.bit_depth_luma) - 1)
 
     @staticmethod
     def ring_bytes(sps: SPS) -> int:
         """Device bytes of the DPB rings this decoder allocates for the
-        stream geometry (_ensure_ring: {G, b, h, j} luma stacks and padded
-        Cb/Cr planes, max_num_ref_frames + 1 slots; 4:2:2 chroma is full
-        height, and samples above 8 bits take 2 bytes)."""
-        n_refs, H, W, Hc, dt = GpuDecoder._ring_geom_of(sps)
-        P = mc_k.PAD
-        luma = n_refs * 4 * (H + 2 * P) * (W + 2 * P)
-        chroma = n_refs * 2 * (Hc + 2 * P) * (W // 2 + 2 * P)
-        return (luma + chroma) * (1 if dt == torch.uint8 else 2)
+        stream geometry (_ensure_ring, shapes from _ring_geom_of; samples
+        above 8 bits take 2 bytes)."""
+        luma, chroma, dt = GpuDecoder._ring_geom_of(sps)
+        return (int(np.prod(luma)) + int(np.prod(chroma))) * (1 if dt == torch.uint8 else 2)
 
     def _ring_over_budget(self, sps: SPS) -> bool:
         """True when the DPB rings would exceed RING_BUDGET_MB on a CPU
@@ -680,17 +775,13 @@ class GpuDecoder(Decoder):
 
     def _ensure_ring(self, sps: SPS) -> int:
         geom = self._ring_geom_of(sps)
-        n_refs, H, W, Hc, dt = geom
+        luma, chroma, dt = geom
         if self._ring is None or self._ring_geom != geom:
-            P = mc_k.PAD
-            self._ring = (
-                torch.zeros((n_refs, 4, H + 2 * P, W + 2 * P), dtype=dt, device=self.device),
-                torch.zeros((n_refs, 2, Hc + 2 * P, W // 2 + 2 * P), dtype=dt,
-                            device=self.device),
-            )
+            self._ring = (torch.zeros(luma, dtype=dt, device=self.device),
+                          torch.zeros(chroma, dtype=dt, device=self.device))
             self._ring_slots = {}
             self._ring_geom = geom
-        return n_refs
+        return luma[0]
 
     def _alloc_slot(self, live_uids: set, n_refs: int) -> int:
         """A free ring slot, evicting slots of no-longer-referenced uids."""
@@ -703,8 +794,10 @@ class GpuDecoder(Decoder):
                           mx: int):
         """Upload reference pictures that lack a ring slot (pictures decoded
         by the host oracle, e.g. lossless transform-bypass frames; uint16
-        planes above 8 bits, held as int16 on the device)."""
+        planes above 8 bits, held as int16 on the device; 4:4:4 Cb and Cr as
+        half-pel stacks, JAX: tpu_pipeline.py:1154-1157)."""
         ring_y, ring_c = self._ring
+        cf3 = ring_c.dim() == 5
         for p in pictures[:n_refs]:
             if p.uid in self._ring_slots:
                 continue
@@ -717,8 +810,9 @@ class GpuDecoder(Decoder):
                 return torch.as_tensor(a, device=self.device)
 
             ring_y[slot] = mc_k.half_pel_planes(dev(p.y), mx)
-            ring_c[slot, 0] = mc_k.chroma_pad(dev(p.cb))
-            ring_c[slot, 1] = mc_k.chroma_pad(dev(p.cr))
+            for k, c in enumerate((p.cb, p.cr)):
+                ring_c[slot, k] = mc_k.half_pel_planes(dev(c), mx) if cf3 else \
+                    mc_k.chroma_pad(dev(c))
             self._ring_slots[p.uid] = slot
 
     def _upload(self, wire: dict) -> dict:
@@ -741,18 +835,26 @@ class GpuDecoder(Decoder):
         return convert.unpack_wire(dev, layout)
 
     def _dyn(self, sps, pps) -> dict:
-        """Scaling-list tables (per-(SPS, PPS) constants, uploaded once)."""
+        """Scaling-list tables (per-(SPS, PPS) constants, uploaded once);
+        for 4:4:4 also the Cb and Cr luma-process lists, [intra, inter], with
+        the JAX package's indices (tpu_pipeline.py:1458-1475)."""
         key = (id(sps), id(pps))
         if self._ls_key != key:
             s4 = pps.effective_scaling_4x4(sps)
             s8 = pps.effective_scaling_8x8(sps)
             l4, l8 = tr_k.level_scale_tables_4x4, tr_k.level_scale_tables_8x8
-            self._ls_dev = convert.dyn_to_torch({
+            tabs = {
                 "ls4_y": np.stack([l4(s4[0]), l4(s4[3])]),
                 "ls8_y": np.stack([l8(s8[0]), l8(s8[1])]),
                 "ls4_c": np.stack([np.stack([l4(s4[1]), l4(s4[2])]),
                                    np.stack([l4(s4[4]), l4(s4[5])])]),
-            }, self.device)
+            }
+            if sps.chroma_array_type == 3:
+                tabs["ls4_cb"] = np.stack([l4(s4[1]), l4(s4[4])])
+                tabs["ls4_cr"] = np.stack([l4(s4[2]), l4(s4[5])])
+                tabs["ls8_cb"] = np.stack([l8(s8[2]), l8(s8[3])])
+                tabs["ls8_cr"] = np.stack([l8(s8[4]), l8(s8[5])])
+            self._ls_dev = convert.dyn_to_torch(tabs, self.device)
             self._ls_key = key
         dyn = dict(self._ls_dev)
         dyn["qp_offsets"] = (int(pps.chroma_qp_index_offset),
@@ -796,6 +898,7 @@ class GpuDecoder(Decoder):
         n = ft.n_mbs
         hdr0 = slices[0][0]
         cf2 = sps.chroma_array_type == 2
+        cf3 = sps.chroma_array_type == 3
         mx = (1 << bd) - 1
         n_refs = self._ensure_ring(sps)
         # ---- unique reference pictures -> ring slots
@@ -843,24 +946,29 @@ class GpuDecoder(Decoder):
         avl, avt, avtr, avtl = _mb_avail_grids(ft, pps)
 
         # ---- PCM planes (only built and shipped when the frame has any):
-        # uint16 above 8 bits, 8x16 chroma per MB for 4:2:2, and mid-gray
-        # chroma for monochrome (which codes none)
+        # uint16 above 8 bits, 8x16 chroma per MB for 4:2:2 and 16x16 for
+        # 4:4:4, and mid-gray chroma for monochrome (which codes none)
         has_pcm = bool(ft.pcm_samples)
         if has_pcm:
             pdt = np.uint8 if bd == 8 else np.uint16
-            chh = 16 if cf2 else 8
+            chh = 16 if cf2 or cf3 else 8
+            cw = 16 if cf3 else 8
             mono = sps.chroma_array_type == 0
             pcm_y = np.zeros((H, W), pdt)
-            pcm_cb = np.zeros((mb_h * chh, W // 2), pdt)
-            pcm_cr = np.zeros((mb_h * chh, W // 2), pdt)
+            pcm_cb = np.zeros((mb_h * chh, mb_w * cw), pdt)
+            pcm_cr = np.zeros((mb_h * chh, mb_w * cw), pdt)
             for addr, (py, pcb, pcr) in ft.pcm_samples.items():
                 mbx, mby = ft.mb_xy(addr)
                 pcm_y[mby * 16 : mby * 16 + 16, mbx * 16 : mbx * 16 + 16] = py
-                cy, cx = slice(mby * chh, (mby + 1) * chh), slice(mbx * 8, mbx * 8 + 8)
+                cy, cx = slice(mby * chh, (mby + 1) * chh), slice(mbx * cw, (mbx + 1) * cw)
                 pcm_cb[cy, cx] = 1 << (bd - 1) if mono else pcb
                 pcm_cr[cy, cx] = 1 << (bd - 1) if mono else pcr
 
-        has_l8 = bool(pps.transform_8x8_mode_flag and ft.luma8_ac is not None)
+        # 4:4:4 may code 8x8 blocks in Cb/Cr alone (JAX: tpu_pipeline.py:1304-1307)
+        has_l8 = bool(pps.transform_8x8_mode_flag and (
+            ft.luma8_ac is not None or (cf3 and ft.c444_8x8 is not None)))
+        if has_l8:
+            ft.ensure_luma8()
         # ---- sparse residual wire: typical inter frames code ~1-5% of the
         # blocks, so ship (index, levels) of coded blocks only, up to fixed
         # capacities; an over-capacity frame (an I frame, typically) ships
@@ -872,7 +980,8 @@ class GpuDecoder(Decoder):
         }
         if has_l8:
             sp["l8"] = (ft.luma8_ac.reshape(-1, 64), n // 4)
-        sparse = not cf2  # 4:2:2 ships its residuals dense, as in the JAX package
+        # 4:2:2 and 4:4:4 ship their residuals dense, as in the JAX package
+        sparse = not (cf2 or cf3)
         masks = _coded_block_masks(ft, has_l8) if sparse else {}
         sp_idx = {}
         for key, (flat, cap) in (sp.items() if sparse else ()):
@@ -904,6 +1013,11 @@ class GpuDecoder(Decoder):
             wire["luma_dc"] = narrow(ft.luma_dc)
             if has_l8:
                 wire["luma8_ac"] = narrow(ft.luma8_ac)
+        if cf3:  # Cb/Cr coded luma-style (JAX: tpu_pipeline.py:1355-1360)
+            wire["c444_ac"] = narrow(ft.c444_ac)
+            wire["c444_dc"] = narrow(ft.c444_dc)
+            if has_l8:
+                wire["c444_8x8"] = narrow(ft.ensure_c444_8x8())
         # MVs ship at 8x8 granularity when no MB uses sub-8x8 partitions,
         # in cell-grid order
         mv16 = ft.mv.reshape(n, 2, 2, 2, 2, 2, 2)
@@ -969,7 +1083,7 @@ class GpuDecoder(Decoder):
         # all-even MVs make the Table 8-12 second sample dead
         need_s2 = bool(((ft.mv & 1) != 0).any())
         flags = (has_l8, has_pcm, self.apply_deblock, sparse, has_intra, need_s2,
-                 2 if cf2 else 1, bd)
+                 sps.chroma_array_type if cf2 or cf3 else 1, bd)
         ring_y, ring_c = self._ring
         if m is not None:
             with m.timer("dispatch"):

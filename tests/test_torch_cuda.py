@@ -247,3 +247,77 @@ def test_wrappers_refuse_bad_tensors(cuda):
     zc = torch.zeros((32, 32), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match=r"\(64, 32\)"):
         intra_cuda.intra_chroma(zc, zc, zc, zc, z, 4, 4, ch_h=16)
+
+
+def _planes_intra_args(cuda, seed, planes, mb_h, mb_w, all_intra):
+    """P planes of 8-bit 4:4:4 intra inputs sharing one set of MB modes."""
+    rng = np.random.default_rng(seed + 100)
+    a = _intra_inputs(seed, mb_h, mb_w, all_intra)
+    H, W = 16 * mb_h, 16 * mb_w
+    base = np.stack([a[0]] + [rng.integers(0, 256, (H, W)) for _ in range(planes - 1)])
+    res = np.stack([a[3]] + [rng.integers(-40, 40, (H, W)) for _ in range(planes - 1)])
+    T = lambda v: torch.as_tensor(np.asarray(v), device=cuda)  # noqa: E731
+    return (T(base.astype(np.int32)), T(res.astype(np.int32)), T(a[6]), T(a[7]), T(a[8]),
+            *(T(v) for v in a[10:]))
+
+
+@pytest.mark.parametrize("planes", [1, 3])
+@pytest.mark.parametrize("all_intra", [False, True])
+@pytest.mark.parametrize("mb_h,mb_w", SHAPES)
+def test_intra_planes_kernel_matches_plain(cuda, mb_h, mb_w, all_intra, planes):
+    """The luma kernel over P planes in one launch (4:4:4's Y, Cb, Cr)
+    against the plain version, intra_wavefront once per plane (run on the
+    CPU, where its many small steps are quicker than on the card)."""
+    args = _planes_intra_args(cuda, 71 + mb_h + mb_w, planes, mb_h, mb_w, all_intra)
+    plain = intra_cuda.intra_planes_plain(*(a.cpu() for a in args), mb_h, mb_w)
+    before = _launch_counts(("intra_luma",))
+    out = intra_cuda.intra_planes(*args, mb_h, mb_w)
+    torch.cuda.synchronize()
+    assert out.shape == (planes, 16 * mb_h, 16 * mb_w)
+    assert torch.equal(out.cpu(), plain)
+    _assert_launched(before)
+
+
+@pytest.mark.parametrize("planes", [1, 3])
+@pytest.mark.parametrize("edges", ["prep", "top"])
+@pytest.mark.parametrize("mb_h,mb_w", SHAPES)
+def test_deblock_planes_kernel_matches_plain(cuda, mb_h, mb_w, edges, planes):
+    """The luma filter over P planes in one launch, shared bS 0..4 and each
+    plane's own indexA / indexB, against deblock_frame once per plane."""
+    seed = 81 + mb_h + mb_w
+    y, _, _, prep = _deblock_args(cuda, seed, mb_h, mb_w, edges)
+    rng = np.random.default_rng(seed)
+    H4, W4 = 4 * mb_h, 4 * mb_w
+    preps, pl = [prep], [y]
+    for _ in range(planes - 1):
+        thr = {k: torch.as_tensor(rng.integers(10, 52, (H4, W4)).astype(np.int32), device=cuda)
+               for k in ("ia_v", "ib_v", "ia_h", "ib_h")}
+        preps.append({**prep, **thr})
+        pl.append(torch.as_tensor(np.clip(128 + rng.integers(-12, 13, tuple(y.shape)), 0, 255)
+                                  .astype(np.uint8), device=cuda))
+    planes_t = torch.stack(pl)
+    prep_p = {**prep, **{k: torch.stack([p[k] for p in preps])
+                         for k in ("ia_v", "ib_v", "ia_h", "ib_h")}}
+    plain = deblock_cuda.deblock_planes_plain(  # on the CPU, as above
+        planes_t.cpu(), {k: v.cpu() for k, v in prep_p.items()}, mb_h, mb_w)
+    before = _launch_counts(("deblock_luma",))
+    out = deblock_cuda.deblock_planes(planes_t, prep_p, mb_h, mb_w)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.uint8 and torch.equal(out.cpu(), plain)
+    if mb_h * mb_w > 1:
+        assert not torch.equal(out, planes_t)
+    _assert_launched(before)
+
+
+@pytest.mark.parametrize("mb_h,mb_w", [(9, 11), (140, 3)])
+def test_planes_kernels_repeat_identically(cuda, mb_h, mb_w):
+    """Three planes in one launch: 10 runs on one input give one output."""
+    args = _planes_intra_args(cuda, 91, 3, mb_h, mb_w, True)
+    y, _, _, prep = _deblock_args(cuda, 92, mb_h, mb_w, "top")
+    planes_t = torch.stack([y, y.flip(0).contiguous(), y.flip(1).contiguous()])
+    prep3 = {**prep, **{k: torch.stack([prep[k]] * 3) for k in ("ia_v", "ib_v", "ia_h", "ib_h")}}
+    runs = [(intra_cuda.intra_planes(*args, mb_h, mb_w),
+             deblock_cuda.deblock_planes(planes_t, prep3, mb_h, mb_w)) for _ in range(10)]
+    torch.cuda.synchronize()
+    for a, b in runs[1:]:
+        assert torch.equal(a, runs[0][0]) and torch.equal(b, runs[0][1])

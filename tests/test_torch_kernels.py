@@ -346,3 +346,63 @@ def test_build_name_covers_headers(tmp_path, monkeypatch):
     assert _build.lib_path("k") != second
     (tmp_path / "k.cu").write_text('#include "wavefront.cuh"\n// edit\n')
     assert _build.lib_path("k") not in (first, second)
+
+
+def test_intra_planes_plain_matches_jax_per_plane():
+    """8-bit 4:4:4 intra at 4x6 MBs: the CPU path of intra_planes against the
+    JAX intra_wavefront run on each of Y, Cb and Cr with dummy chroma and
+    chroma mode 0, as the JAX package's 4:4:4 frame program runs it
+    (tolerance 0)."""
+    mb_h, mb_w = 4, 6
+    a = _intra_inputs(35, mb_h, mb_w)
+    rng = np.random.default_rng(35)
+    H, W = 16 * mb_h, 16 * mb_w
+    planes = np.stack([a[0], rng.integers(0, 256, (H, W)), rng.integers(0, 256, (H, W))])
+    resid = np.stack([a[3], rng.integers(-40, 40, (H, W)), rng.integers(-40, 40, (H, W))])
+    planes, resid = planes.astype(np.int32), resid.astype(np.int32)
+    kind, modes4, i16, _, avl, avt, avtr, avtl = a[6:]
+    dummy = jnp.zeros((8 * mb_h, 8 * mb_w), jnp.int32)
+    want = [j_intra.intra_wavefront(jnp.asarray(p), dummy, dummy, jnp.asarray(r), dummy, dummy,
+                                    *(jnp.asarray(v) for v in (kind, modes4, i16)),
+                                    jnp.zeros(mb_h * mb_w, jnp.int32),
+                                    *(jnp.asarray(v) for v in (avl, avt, avtr, avtl)),
+                                    mb_h, mb_w)[0]
+            for p, r in zip(planes, resid)]
+    got = intra_cuda.intra_planes(T(planes), T(resid), T(kind), T(modes4), T(i16), T(avl),
+                                  T(avt), T(avtr), T(avtl), mb_h, mb_w)
+    assert got.shape == (3, H, W)
+    eq(np.stack([np.asarray(w) for w in want]), got)
+    assert not torch.equal(got[1], T(planes[1]))  # Cb really reconstructed
+
+
+def test_deblock_planes_plain_matches_jax_per_plane():
+    """8-bit 4:4:4 deblocking at 4x6 MBs: the CPU path of deblock_planes,
+    on the stacked prep that prep_444 makes from one prep made with the
+    PPS's chroma QP offsets, against the JAX deblock_frame_tpu run on each plane
+    with dummy chroma and that plane's own prep (the JAX 4:4:4 path's
+    prep_for(qp_grid): Y's QP, Cb's and Cr's QPc, offsets (0, 0));
+    tolerance 0."""
+    mb_h, mb_w = 4, 6
+    p = _prep_inputs(46, mb_h, mb_w)
+    rng = np.random.default_rng(46)
+    planes = np.clip(128 + rng.integers(-12, 13, (3, 16 * mb_h, 16 * mb_w)), 0, 255)
+    planes = planes.astype(np.uint8)
+    qps = [p["qp"]] + [t_tr.CHROMA_QP_TAB[np.clip(p["qp"] + off, 0, 51)] for off in p["offs"]]
+    dummy = jnp.zeros((8 * mb_h, 8 * mb_w), jnp.uint8)
+    want = []
+    _, tp_all = _prep_both(p, mb_h, mb_w)
+    prep3 = deblock_cuda.prep_444(tp_all)
+    assert prep3["ia_v"].shape == (3, 4 * mb_h, 4 * mb_w)
+    for k, (plane, qp) in enumerate(zip(planes, qps)):
+        prep = deblock_cuda.plane_prep(prep3, k)
+        jp, tp = _prep_both({**p, "qp": qp, "offs": (0, 0)}, mb_h, mb_w)
+        for n in ("bs_v", "bs_h", "ia_v", "ib_v", "ia_h", "ib_h"):
+            assert torch.equal(prep[n], tp[n]), n
+        want.append(np.asarray(j_db.deblock_frame_tpu(jnp.asarray(plane), dummy, dummy, jp,
+                                                      mb_h, mb_w)[0]))
+    assert p["offs"][0] != p["offs"][1] and not torch.equal(prep3["ia_v"][1], prep3["ia_v"][0])
+    got = deblock_cuda.deblock_planes(T(planes), prep3, mb_h, mb_w)
+    assert got.dtype == torch.uint8
+    eq(np.stack(want), got)
+    for k in range(3):
+        assert not torch.equal(got[k], T(planes[k]))

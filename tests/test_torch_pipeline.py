@@ -4,8 +4,11 @@ and libavcodec. Every comparison is bit-exact (tolerance 0)."""
 import ast
 import json
 import os
+import socket
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ from h264decode_tpu_torch.cli.main import main as cli_main
 from h264decode_tpu_torch.entropy import native
 from h264decode_tpu_torch.pipeline import gpu_pipeline
 from h264decode_tpu_torch.pipeline.gpu_pipeline import GpuDecoder
-from chip_smoke import y4m_md5s
+from chip_smoke import md5s, y4m_md5s
 from tests.conftest import make_test_frames
 
 torch.set_num_threads(1)
@@ -102,21 +105,24 @@ def _record_jax_frame_steps(monkeypatch):
 
 def _port_frame_step_matches(call):
     """Run one recorded JAX frame through the port's frame_step: the packed
-    output and both rings must be identical."""
+    output and every ring must be identical. The JAX flags are a 9-tuple
+    with cf3 at index 4; the port's an 8-tuple with the ChromaArrayType."""
     wire, rings, dyn, mb_h, mb_w, flags, jout = call
-    has_l8, has_pcm, apply_db, sparse, _, has_intra, cf2, bd, need_s2 = flags
-    hbd = bd > 8  # the JAX rings hold Cb and Cr apart above 8 bits
+    has_l8, has_pcm, apply_db, sparse, cf3, has_intra, cf2, bd, need_s2 = flags
+    cat = 3 if cf3 else (2 if cf2 else 1)
+    # the JAX rings hold Cb and Cr apart above 8 bits and for 4:4:4
+    n_rings = 3 if bd > 8 or cf3 else 2
     t_wire, t_dyn = convert.wire_from_numpy(wire, dyn)
-    ring_y, ring_c = convert.ring_from_jax(*rings[: 3 if hbd else 2])
+    ring_y, ring_c = convert.ring_from_jax(*rings[:n_rings])
     packed = gpu_pipeline.frame_step(
         t_wire, ring_y, ring_c, t_dyn, mb_h, mb_w,
-        (has_l8, has_pcm, apply_db, sparse, has_intra, need_s2, 2 if cf2 else 1, bd),
+        (has_l8, has_pcm, apply_db, sparse, has_intra, need_s2, cat, bd),
         int(wire["slot_idx"][0]),
     )
     jpacked = jout[-1]
     assert packed.shape == jpacked.shape
     np.testing.assert_array_equal(packed.numpy().view(jpacked.dtype), jpacked)
-    ey, ec = convert.ring_from_jax(*jout[: 3 if hbd else 2])
+    ey, ec = convert.ring_from_jax(*jout[:n_rings])
     assert torch.equal(ring_y, ey)
     assert torch.equal(ring_c, ec)
 
@@ -174,6 +180,10 @@ STREAMS = {
     "high10_weighted": dict(profile="high10", csp="yuv420p10le", cabac=True, bframes=2,
                             extra_x264="weightp=2:weightb=1"),
     "mono": dict(profile="high", csp="gray", cabac=True, bframes=1, extra_x264="8x8dct=1"),
+    "high444_8": dict(profile="high444", csp="yuv444p", cabac=True, bframes=2,
+                      extra_x264="weightp=2:8x8dct=1"),
+    "high444_8_cavlc_slices": dict(profile="high444", csp="yuv444p", cabac=False, bframes=1,
+                                   extra_x264="slices=3:ref=3"),
     # routed to the numpy oracle, as in the JAX package
     "mbaff": dict(profile="high", cabac=True, bframes=0, extra_x264="interlaced=1"),
     "lossless": dict(qp=0, profile="main", cabac=True, bframes=0),
@@ -184,7 +194,8 @@ ORACLE_STREAMS = {"mbaff", "lossless", "high444_10"}
 
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_gpu_decoder_cpu_matches_libavcodec(name):
-    frames = fade_frames(4, 144, 176, seed=5) if "weighted" in name else \
+    weighted = "weightp" in STREAMS[name].get("extra_x264", "")
+    frames = fade_frames(4, 144, 176, seed=5) if weighted else \
         make_test_frames(4, 144, 176, seed=6)
     kw = {"qp": 27, **STREAMS[name]}
     bs = lavc.encode_x264(to_format(frames, kw.get("csp", "yuv420p")), **kw)
@@ -227,11 +238,12 @@ def test_rings_larger_than_the_card_raise_on_cuda(monkeypatch):
             dec._ring_over_budget(uhd)
 
 
-@pytest.mark.parametrize("cat,bd", [(0, 8), (1, 8), (2, 8), (1, 10), (2, 10)])
+@pytest.mark.parametrize("cat,bd", [(0, 8), (1, 8), (2, 8), (1, 10), (2, 10), (3, 8)])
 def test_ring_bytes_count_what_the_decoder_allocates(cat, bd):
     """ring_bytes (the budget guard's measure) counts the rings _ensure_ring
-    allocates: full-height 4:2:2 chroma, 2-byte samples above 8 bits, and
-    the mid-gray chroma ring of monochrome."""
+    allocates: full-height 4:2:2 chroma, 2-byte samples above 8 bits, the
+    mid-gray chroma ring of monochrome, and 4:4:4's Cb and Cr half-pel
+    stacks."""
     from types import SimpleNamespace
 
     sps = SimpleNamespace(max_num_ref_frames=2, frame_height_in_mbs=4, pic_width_in_mbs=6,
@@ -240,7 +252,9 @@ def test_ring_bytes_count_what_the_decoder_allocates(cat, bd):
         dec._ensure_ring(sps)
         ring_y, ring_c = dec._ring
         assert ring_y.dtype == (torch.uint8 if bd == 8 else torch.int16)
-        assert ring_c.shape[-2] == (64 if cat == 2 else 32) + 2 * 8
+        assert ring_c.shape[-2] == (64 if cat in (2, 3) else 32) + 2 * 8
+        assert ring_c.shape[-1] == (96 if cat == 3 else 48) + 2 * 8
+        assert ring_c.shape[:3] == ((3, 2, 4) if cat == 3 else (3, 2, ring_c.shape[2]))
         got = sum(t.numel() * t.element_size() for t in dec._ring)
     assert got == GpuDecoder.ring_bytes(sps)
 
@@ -254,10 +268,12 @@ def test_cli_decodes_cif_smoke_stream_to_committed_md5s(tmp_path):
     assert y4m_md5s(str(out), want) == want["frames"]
 
 
-@pytest.mark.parametrize("name", ["smoke_cif_high10.h264", "smoke_cif_gray.h264"])
+@pytest.mark.parametrize("name", ["smoke_cif_high10.h264", "smoke_cif_gray.h264",
+                                  "smoke_cif_high444.h264"])
 def test_cli_decodes_new_format_smoke_streams_to_committed_md5s(tmp_path, name):
-    """High 10 (uint16 samples in the Y4M) and monochrome (mid-gray 4:2:0
-    chroma) through the CLI, to the committed libavcodec MD5s."""
+    """High 10 (uint16 samples in the Y4M), monochrome (mid-gray 4:2:0
+    chroma) and High 4:4:4 Predictive 8-bit (full-size chroma, the JVT
+    scaling lists) through the CLI, to the committed libavcodec MD5s."""
     with open(os.path.join(DATA, "smoke_md5.json")) as f:
         want = json.load(f)[name]
     out = tmp_path / "out.y4m"
@@ -273,20 +289,48 @@ def test_gpu_decoder_needs_cuda_unless_asked_for_cpu(monkeypatch):
         GpuDecoder()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main(["decode", os.path.join(DATA, "smoke_cif_high.h264"), "unused.y4m"])
+    # serve makes its first decoder before it listens: no card, no server
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main(["serve", "--port", "0", "--once"])
     GpuDecoder(device="cpu").close()
 
 
 def test_unported_formats_raise():
-    """8-bit 4:4:4 is not on the GPU path yet (High 4:4:4 at 10 bits decodes
-    on the host oracle, as in the JAX package)."""
-    frames = to_format(make_test_frames(1, 32, 32), "yuv444p")
-    bs = lavc.encode_x264(frames, qp=30, profile="high444", cabac=False, bframes=0,
-                          csp="yuv444p")
-    with GpuDecoder(device="cpu") as dec, pytest.raises(NotImplementedError,
-                                                          match="ROADMAP"):
-        dec.decode_stream(bs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_main(["serve"])
+    """Every stream format of the JAX package runs (8-bit 4:4:4 on the
+    frame program, High 4:4:4 above 8 bits on the host oracle, as in the
+    JAX package); the multi-device backends sharded and gop are not ported
+    yet and raise, naming the ROADMAP item."""
+    for backend in ("sharded", "gop"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli_main(["decode", os.path.join(DATA, "smoke_cif_high.h264"), "unused.y4m",
+                      "--backend", backend])
+
+
+def test_serve_once_on_cpu_matches_libavcodec(tmp_path, capsys):
+    """`serve --once --port 0 --device cpu` on a thread: it prints the port
+    it bound, decodes the stream sent over one TCP connection into
+    stream_0.y4m with a decoder of its own, and returns once the file is
+    written; the frames equal libavcodec's."""
+    bs = lavc.encode_x264(make_test_frames(3, 64, 64, seed=12), qp=28, profile="main",
+                          cabac=True, bframes=1)
+    rc = []
+    srv = threading.Thread(target=lambda: rc.append(cli_main(
+        ["serve", "--once", "--port", "0", "--device", "cpu", "--out-dir", str(tmp_path)])))
+    srv.start()
+    out, deadline = "", time.time() + 60
+    while "listening on" not in out and time.time() < deadline:
+        time.sleep(0.05)
+        out += capsys.readouterr().out
+    port = int(out.split("listening on ")[1].split(";")[0].rsplit(":", 1)[1])
+    with socket.create_connection(("127.0.0.1", port)) as conn:
+        for i in range(0, len(bs), 1000):  # in pieces, as a network delivers it
+            conn.sendall(bs[i : i + 1000])
+    srv.join(timeout=120)
+    assert not srv.is_alive() and rc == [0]
+    golden = lavc.decode_annexb(bs)
+    want = dict(width=64, height=64, bit_depth=8, chroma="420")
+    assert y4m_md5s(str(tmp_path / "stream_0.y4m"), want) == [md5s(g.planes())
+                                                              for g in golden]
 
 
 def test_close_stops_worker_threads():

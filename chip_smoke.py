@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (h264decode_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,main,serve,dist]
 
 Run from the repository root on a machine with a CUDA device. Phases (each
-raises on failure, and the script then exits non-zero):
+raises on failure, and the script then exits non-zero); without --phases
+every phase runs, and step 1 always does:
 
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
    kernels (one nvcc per csrc/*.cu, started together) and the native
@@ -44,8 +45,22 @@ raises on failure, and the script then exits non-zero):
 4. `python -m h264decode_tpu_torch serve --port 0 --once` as a subprocess
    on the card, fed the 1080p 4:4:4 stream over TCP: its Y4M must match
    the committed MD5s; prints the wall time from connecting to its exit.
+5. The multi-device path (dist/) on meshes that repeat cuda:0. First the
+   four kernels with their halo inputs (intra's row above MB row 0,
+   deblocking's 4 rows above it, filtered and returned) at one band of a
+   1x4 mesh at 1080p (17 x 120 MBs), held and timed as in step 2: the
+   kernel table's *_halo rows. Then ShardedDecoder 1x1, 1x2 and 1x4 (halo mode)
+   on the 1080p Main stream and 1x4 on its 4-slice, deblocking-off twin
+   (aligned mode, checked), and GopParallelDecoder 2x1 and 2x2 on the
+   16-frame 1080p Main stream with an IDR every 4 frames: every frame
+   against the committed MD5s, launch counters set to 0 just before the
+   checked decode and read just after (every kernel launched, the halo
+   launches exactly where bands pass rows, one device kernel per call),
+   frames/s beside GpuDecoder's on the same stream. Then
+   `python -m h264decode_tpu_torch decode --backend sharded --mesh 1x1`.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (with the main-path,
+serve and dist results of the phases that ran); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Raw kernel-build logs go to chiprun_out/chip_smoke_build.log.
 """
@@ -89,6 +104,23 @@ STREAMS = (("smoke_1080p_main_cabac.h264", "", True),
            ("smoke_cif_high444.h264", None, False))
 # the stream the serve phase sends over TCP
 SERVE_STREAM = "smoke_1080p_high444.h264"
+# the dist phase: one band of a 1x4 mesh at 1080p for the halo kernel rows
+BAND_H = MB_H // 4
+# the wrappers' launches given halo rows (counted under their own names)
+HALO_KERNELS = tuple(k + "_halo" for k in ROW_KERNELS)
+# the dist phase's decodes on meshes that repeat cuda:0: (label, stream,
+# mesh (G, R), decoder, mode of every frame)
+DIST_RUNS = (
+    ("sharded 1x1", "smoke_1080p_main_cabac.h264", (1, 1), "sharded", "halo"),
+    ("sharded 1x2 halo", "smoke_1080p_main_cabac.h264", (1, 2), "sharded", "halo"),
+    ("sharded 1x4 halo", "smoke_1080p_main_cabac.h264", (1, 4), "sharded", "halo"),
+    ("sharded 1x4 aligned", "smoke_1080p_main_slices4_nodb.h264", (1, 4), "sharded", "aligned"),
+    ("gop 2x1", "smoke_1080p_main_gop4.h264", (2, 1), "gop", "halo"),
+    ("gop 2x2", "smoke_1080p_main_gop4.h264", (2, 2), "gop", "halo"),
+)
+# the run whose launches fill the kernel table's *_halo rows
+HALO_RUN = "sharded 1x4 halo"
+PHASES = ("kernels", "main", "serve", "dist")
 
 
 def log(msg: str):
@@ -170,13 +202,13 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def intra_inputs(dev, seed=1, ch_h=8, bd=8):
+def intra_inputs(dev, seed=1, ch_h=8, bd=8, mb_h=MB_H):
     import torch
 
     rng = np.random.default_rng(seed)
-    n = MB_H * MB_W
-    H, W = 16 * MB_H, 16 * MB_W
-    Hc, sh = ch_h * MB_H, bd - 8
+    n = mb_h * MB_W
+    H, W = 16 * mb_h, 16 * MB_W
+    Hc, sh = ch_h * mb_h, bd - 8
     kind = rng.integers(0, 4, n).astype(np.int32)  # every kind, ~3/4 intra
     modes4 = rng.integers(0, 9, (n, 16)).astype(np.int32)  # all 9 modes
     i16 = rng.integers(0, 4, n).astype(np.int32)
@@ -197,14 +229,16 @@ def intra_inputs(dev, seed=1, ch_h=8, bd=8):
     return t
 
 
-def deblock_inputs(dev, seed=2, ch_h=8, bd=8):
+def deblock_inputs(dev, seed=2, ch_h=8, bd=8, mb_h=MB_H, top_edge=False):
+    """Planes and edge parameters; top_edge: also bS 0..4 on MB row 0's top
+    edge, which filters across a band boundary against a halo."""
     import torch
 
     from h264decode_tpu_torch.kernels.deblock_prep_dev import deblock_prep_device
 
     rng = np.random.default_rng(seed)
-    n = MB_H * MB_W
-    H4, W4 = 4 * MB_H, 4 * MB_W
+    n = mb_h * MB_W
+    H4, W4 = 4 * mb_h, 4 * MB_W
     qp = rng.integers(0, 52, n)
     qp[rng.random(n) < 0.1] = 0
     qp[rng.random(n) < 0.1] = 51
@@ -218,15 +252,18 @@ def deblock_inputs(dev, seed=2, ch_h=8, bd=8):
         T(((rng.random((H4, W4)) < 0.3) * rng.integers(1, 9, (H4, W4))).astype(np.int32)),
         T(np.zeros((n, 2, 4), np.int32)),
         T(rng.integers(-12, 12, (2, H4, W4, 2)).astype(np.int32)),
-        (int(rng.integers(-12, 13)), int(rng.integers(-12, 13))), MB_H, MB_W,
+        (int(rng.integers(-12, 13)), int(rng.integers(-12, 13))), mb_h, MB_W,
         slot_cells=T(rng.integers(-1, 3, (2, H4, W4)).astype(np.int32)),
         chroma_all_h_edges=ch_h == 16,
     )
     keys = ("bs_v", "bs_h", "bs_hc") if ch_h == 16 else ("bs_v", "bs_h")
+    if top_edge:
+        for k in keys[1:]:
+            prep[k][0] = T(rng.integers(0, 5, W4).astype(np.int32))
     for k in keys:
         if set(torch.unique(prep[k]).tolist()) != {0, 1, 2, 3, 4}:
             raise RuntimeError(f"deblock inputs: {k} does not cover bS 0..4")
-    shapes = ((16 * MB_H, 16 * MB_W), (ch_h * MB_H, 8 * MB_W), (ch_h * MB_H, 8 * MB_W))
+    shapes = ((16 * mb_h, 16 * MB_W), (ch_h * mb_h, 8 * MB_W), (ch_h * mb_h, 8 * MB_W))
     if bd == 8:  # low-contrast planes so the filters fire
         planes = [torch.as_tensor(np.clip(128 + rng.integers(-12, 13, s), 0, 255)
                                   .astype(np.uint8), device=dev) for s in shapes]
@@ -244,30 +281,24 @@ def deblock_inputs(dev, seed=2, ch_h=8, bd=8):
     return planes, prep
 
 
-def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
-    """The four kernels' instantiation for ChromaArrayType cat and bit
-    depth bd against their plain versions at 1080p geometry; returns the
-    kernel table's rows, keyed by row name (kernel name + format suffix)."""
+def intra_rows(t: dict, mb_h: int, ch_h: int, bd: int, suffix: str, fmt_name: str,
+               top=None) -> dict:
+    """intra_luma and intra_chroma on inputs t (mb_h x MB_W MBs) against the
+    plain version, REPLAYS graph replays bit-exact; top: the rows above MB
+    row 0 (y, cb, cr) or None. Returns the kernel table's two rows."""
     import torch
 
-    from h264decode_tpu_torch.kernels import deblock_cuda, intra_cuda
-    from h264decode_tpu_torch.kernels.deblock import deblock_frame as deblock_plain
+    from h264decode_tpu_torch.kernels import intra_cuda
     from h264decode_tpu_torch.kernels.intra import intra_wavefront
 
-    suffix = FORMATS[(cat, bd)]
-    ch_h, mid, mx, bd_scale = 16 if cat == 2 else 8, 1 << (bd - 1), (1 << bd) - 1, 1 << (bd - 8)
-    fmt_name = f"4:2:{'2' if cat == 2 else '0'} {bd}-bit"
-    sb = 1 if bd == 8 else 2  # bytes per deblock sample
-    res = {}
-    n = MB_H * MB_W
-    # ---- intra
-    t = intra_inputs(dev, ch_h=ch_h, bd=bd)
+    mid, mx = 1 << (bd - 1), (1 << bd) - 1
+    n = mb_h * MB_W
     args = (t["y"], t["cb"], t["cr"], t["ry"], t["rcb"], t["rcr"], t["kind"], t["modes4"],
-            t["i16"], t["cm"], t["avl"], t["avt"], t["avtr"], t["avtl"], MB_H, MB_W,
+            t["i16"], t["cm"], t["avl"], t["avt"], t["avtr"], t["avtl"], mb_h, MB_W,
             ch_h, mid, mx)
-    # ~20 s a call: time the one call whose output is compared
+    # ~20 s a call at 1080p: time the one call whose output is compared
     box = []
-    ms_plain = cuda_ms(lambda: box.append(intra_wavefront(*args)), runs=1, warmup=0)
+    ms_plain = cuda_ms(lambda: box.append(intra_wavefront(*args, top=top)), runs=1, warmup=0)
     plain = box[0]
     params = intra_cuda.pack_params(t["kind"], t["modes4"], t["i16"], t["cm"], t["avl"],
                                     t["avt"], t["avtr"], t["avtl"])
@@ -277,10 +308,11 @@ def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
         for k in ("y", "cb", "cr"):
             work[k].copy_(t[k])
 
-    run_l = lambda: intra_cuda.intra_luma(work["y"], t["ry"], params, MB_H, MB_W,  # noqa: E731
-                                          mid, mx)
+    top_l, top_c = (None, None) if top is None else (top[0], top[1:])
+    run_l = lambda: intra_cuda.intra_luma(work["y"], t["ry"], params, mb_h, MB_W,  # noqa: E731
+                                          mid, mx, top_l)
     run_c = lambda: intra_cuda.intra_chroma(work["cb"], work["cr"], t["rcb"],  # noqa: E731
-                                            t["rcr"], params, MB_H, MB_W, ch_h, mid, mx)
+                                            t["rcr"], params, mb_h, MB_W, ch_h, mid, mx, top_c)
     run_l()
     run_c()
     torch.cuda.synchronize()
@@ -295,9 +327,11 @@ def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
     eager_l, eager_c = cuda_ms(run_l, reset_intra), cuda_ms(run_c, reset_intra)
     n_intra = int((t["kind"] > 0).sum())
     # bytes this data needs: every MB's params row is read; an intra MB reads
-    # its residual and neighbour strips and writes its samples (int32)
-    b_l = n * 4 * 20 + n_intra * 4 * (256 * 2 + 16 + 25)
-    b_c = n * 4 * 20 + n_intra * 4 * 2 * (8 * ch_h * 2 + ch_h + 9)
+    # its residual and neighbour strips and writes its samples (int32); a
+    # given top row is read once
+    b_l = n * 4 * 20 + n_intra * 4 * (256 * 2 + 16 + 25) + (0 if top is None else 4 * 16 * MB_W)
+    b_c = (n * 4 * 20 + n_intra * 4 * 2 * (8 * ch_h * 2 + ch_h + 9)
+           + (0 if top is None else 4 * 2 * 8 * MB_W))
     n_i4 = int((t["kind"] == 1).sum())
     n_i8 = int((t["kind"] == 2).sum())
     n_i16 = int((t["kind"] == 3).sum())
@@ -305,6 +339,7 @@ def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
     # a 16x16 or chroma sample ~12, + residual add and clip (3 each)
     ops_l = 256 * (23 * n_i4 + 63 * n_i8 + 15 * n_i16)
     ops_c = 2 * 8 * ch_h * 15 * n_intra
+    res = {}
     for name, err, ms, nb, ops, src in (
         ("intra_luma", err_l, ms_l, b_l, ops_l, "intra_pallas.py:440"),
         ("intra_chroma", err_c, ms_c, b_c, ops_c, "intra_pallas.py:590"),
@@ -320,55 +355,83 @@ def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
         f"{eager_l} chroma {eager_c}; plain (both) {ms_plain} ms; "
         f"MBs I4 {n_i4} I8 {n_i8} I16 {n_i16} of {n}; {REPLAYS} graph replays of each "
         f"bit-exact")
+    return res
 
-    # ---- deblock
-    ctx = dict(intra=t)
-    (y0, cb0, cr0), prep = deblock_inputs(dev, ch_h=ch_h, bd=bd)
+
+def deblock_rows(planes, prep: dict, mb_h: int, ch_h: int, bd: int, suffix: str,
+                 fmt_name: str, halo=None) -> dict:
+    """deblock_luma and deblock_chroma on planes and prep (mb_h x MB_W MBs)
+    against the plain version, REPLAYS graph replays bit-exact; halo: the 4
+    rows above MB row 0 (y, cb, cr), filtered and compared too, or None.
+    Returns the kernel table's two rows."""
+    import torch
+
+    from h264decode_tpu_torch.kernels import deblock_cuda
+    from h264decode_tpu_torch.kernels.deblock import deblock_frame as deblock_plain
+
+    bd_scale, mx = 1 << (bd - 8), (1 << bd) - 1
+    sb = 1 if bd == 8 else 2  # bytes per deblock sample
+    n = mb_h * MB_W
     fmt = (ch_h, bd_scale, mx)
-    box = []  # ~5 s a call: time the one call whose output is compared
-    ms_plain = cuda_ms(lambda: box.append(deblock_plain(y0, cb0, cr0, prep, MB_H, MB_W, *fmt)),
-                       runs=1, warmup=0)
-    plain = box[0]
-    ctx["deblock"] = (y0, prep)
-    dw = dict(y=y0.clone(), cb=cb0.clone(), cr=cr0.clone())
+    inputs = dict(zip(("y", "cb", "cr"), planes))
+    if halo is not None:
+        inputs.update(zip(("hy", "hcb", "hcr"), halo))
+    box = []  # ~5 s a call at 1080p: time the one call whose output is compared
+    ms_plain = cuda_ms(lambda: box.append(deblock_plain(*planes, prep, mb_h, MB_W, *fmt,
+                                                        halo=halo)), runs=1, warmup=0)
+    plain = box[0] if halo is None else (*box[0][0], *box[0][1])
+    want = dict(zip(inputs, plain))
+    dw = {k: v.clone() for k, v in inputs.items()}
 
     def reset_db():
-        for k, v in (("y", y0), ("cb", cb0), ("cr", cr0)):
+        for k, v in inputs.items():
             dw[k].copy_(v)
 
-    run_l = lambda: deblock_cuda.deblock_luma(dw["y"], prep, MB_H, MB_W,  # noqa: E731
-                                              bd_scale, mx)
+    outs_l = ["y"] + ([] if halo is None else ["hy"])
+    outs_c = ["cb", "cr"] + ([] if halo is None else ["hcb", "hcr"])
+    halo_c = None if halo is None else (dw["hcb"], dw["hcr"])
+    run_l = lambda: deblock_cuda.deblock_luma(dw["y"], prep, mb_h, MB_W,  # noqa: E731
+                                              bd_scale, mx, dw.get("hy"))
     run_c = lambda: deblock_cuda.deblock_chroma(dw["cb"], dw["cr"], prep,  # noqa: E731
-                                                MB_H, MB_W, *fmt)
+                                                mb_h, MB_W, *fmt, halo=halo_c)
     run_l()
     run_c()
     torch.cuda.synchronize()
     i32 = torch.int32
-    err_l = int((dw["y"].to(i32) - plain[0].to(i32)).abs().max())
-    err_c = max(int((dw["cb"].to(i32) - plain[1].to(i32)).abs().max()),
-                int((dw["cr"].to(i32) - plain[2].to(i32)).abs().max()))
-    changed = [int((p != q).sum()) for p, q in zip(plain, (y0, cb0, cr0))]
-    if 0 in changed:
-        raise RuntimeError(f"deblock inputs: the plain filter left a plane unchanged "
+
+    def err(keys):
+        return max(int((dw[k].to(i32) - want[k].to(i32)).abs().max()) for k in keys)
+
+    err_l, err_c = err(outs_l), err(outs_c)
+    changed = {k: int((want[k] != v).sum()) for k, v in inputs.items()}
+    if 0 in changed.values():
+        raise RuntimeError(f"deblock inputs: the plain filter left a plane or halo unchanged "
                            f"({changed} samples changed)")
     g_l, g_c = capture(run_l, reset_db), capture(run_c, reset_db)
-    replay_check("deblock_luma" + suffix, g_l, reset_db, [dw["y"]], plain[:1])
-    replay_check("deblock_chroma" + suffix, g_c, reset_db, [dw["cb"], dw["cr"]], plain[1:])
+    replay_check("deblock_luma" + suffix, g_l, reset_db, [dw[k] for k in outs_l],
+                 [want[k] for k in outs_l])
+    replay_check("deblock_chroma" + suffix, g_c, reset_db, [dw[k] for k in outs_c],
+                 [want[k] for k in outs_c])
     ms_l, ms_c = graph_ms(g_l, reset_db), graph_ms(g_c, reset_db)
     eager_l, eager_c = cuda_ms(run_l, reset_db), cuda_ms(run_c, reset_db)
     bs_c = prep["bs_hc"] if ch_h == 16 else prep["bs_h"]
     mb_any = ((prep["bs_v"] > 0) | (prep["bs_h"] > 0) | (bs_c > 0)
-              ).reshape(MB_H, 4, MB_W, 4).any(3).any(1)
+              ).reshape(mb_h, 4, MB_W, 4).any(3).any(1)
     n_act = int(mb_any.sum())
     # bytes: every MB reads its 16 bS pairs; an active MB reads its
     # thresholds and its samples (plus the strips left and above) and writes
-    # its samples; sb bytes per sample, chroma tiles of 4 + ch_h lines
+    # its samples; sb bytes per sample, chroma tiles of 4 + ch_h lines; a
+    # halo's rows are read and the changed ones written back
     b_l = n * 16 * 4 * 2 + n_act * (16 * 4 * 4 + (20 * 20 + 256) * sb)
     b_c = n * 16 * 4 * 2 + n_act * 2 * (16 * 4 * 4 + (12 * (4 + ch_h) + 8 * ch_h) * sb)
+    if halo is not None:
+        b_l += (4 + 3) * 16 * MB_W * sb
+        b_c += 2 * (2 + 1) * 8 * MB_W * sb
     ops_l = n_act * 8 * 16 * 40  # 8 edges x 16 lines x ~40 ops
     # 2 vertical edges x ch_h lines + (2 or 4) horizontal edges x 8 columns
     ops_c = n_act * 2 * (2 * ch_h + (ch_h // 4 if ch_h == 16 else 2) * 8) * 20
-    for name, err, ms, nb, ops, src in (
+    res = {}
+    for name, e, ms, nb, ops, src in (
         ("deblock_luma", err_l, ms_l, b_l, ops_l, "deblock_pallas.py:211"),
         ("deblock_chroma", err_c, ms_c, b_c, ops_c, "deblock_pallas.py:295"),
     ):
@@ -376,15 +439,30 @@ def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
         res[name + suffix] = dict(
             name=name + suffix, kernel=name, format=fmt_name, route="cuda",
             source="h264decode_tpu_torch/csrc/deblock.cu",
-            replaces=f"h264decode_tpu/kernels/{src}", max_abs_err=err, ms=ms,
+            replaces=f"h264decode_tpu/kernels/{src}", max_abs_err=e, ms=ms,
             plain_ms=ms_plain, bound_ms=bms, bound_by=by, library_ms=None)
     log(f"deblock {fmt_name}: max_abs_err luma {err_l} chroma {err_c}; kernel ms (graph "
         f"replay) luma {ms_l} chroma {ms_c}; eager call (events around the enqueue) luma "
         f"{eager_l} chroma {eager_c}; plain (both) {ms_plain} ms; active MBs {n_act} of "
-        f"{n}; samples changed by the filter (y, cb, cr) {changed}; {REPLAYS} graph "
-        f"replays of each bit-exact")
+        f"{n}; samples changed by the filter {changed}; {REPLAYS} graph replays of each "
+        f"bit-exact")
+    return res
+
+
+def kernel_phase(dev, cat: int = 1, bd: int = 8) -> dict:
+    """The four kernels' instantiation for ChromaArrayType cat and bit
+    depth bd against their plain versions at 1080p geometry; returns the
+    kernel table's rows, keyed by row name (kernel name + format suffix),
+    and the inputs the 4:4:4 phase reuses."""
+    suffix = FORMATS[(cat, bd)]
+    ch_h = 16 if cat == 2 else 8
+    fmt_name = f"4:2:{'2' if cat == 2 else '0'} {bd}-bit"
+    t = intra_inputs(dev, ch_h=ch_h, bd=bd)
+    res = intra_rows(t, MB_H, ch_h, bd, suffix, fmt_name)
+    planes, prep = deblock_inputs(dev, ch_h=ch_h, bd=bd)
+    res.update(deblock_rows(planes, prep, MB_H, ch_h, bd, suffix, fmt_name))
     check_exact(res)
-    return res, ctx
+    return res, dict(intra=t, deblock=(planes[0], prep))
 
 
 def check_exact(rows: dict) -> None:
@@ -712,9 +790,143 @@ def serve_phase(name: str, want: dict) -> float:
     return wall
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 5: the multi-device path (dist/) on one card
+# ---------------------------------------------------------------------------
+
+
+def halo_phase(dev) -> dict:
+    """The four kernels with their halo inputs (the row above MB row 0 for
+    intra, the 4 rows above it for deblocking, filtered and returned) at the
+    geometry of one band of a 1x4 mesh at 1080p (BAND_H x MB_W MBs), 4:2:0
+    8-bit, against their plain versions: seeded top and halo rows, bS 0..4
+    on MB row 0's top edge. Returns the kernel table's four *_halo rows."""
     import torch
 
+    rng = np.random.default_rng(6)
+    W, Wc = 16 * MB_W, 8 * MB_W
+    fmt_name = f"4:2:0 8-bit, one band of four ({BAND_H}x{MB_W} MBs) with the rows above"
+    t = intra_inputs(dev, seed=4, mb_h=BAND_H)
+    top = [torch.as_tensor(rng.integers(0, 256, w).astype(np.int32), device=dev)
+           for w in (W, Wc, Wc)]
+    res = intra_rows(t, BAND_H, 8, 8, "_halo", fmt_name, top)
+    planes, prep = deblock_inputs(dev, seed=5, mb_h=BAND_H, top_edge=True)
+    halo = [torch.as_tensor(np.clip(128 + rng.integers(-12, 13, (4, w)), 0, 255)
+                            .astype(np.uint8), device=dev) for w in (W, Wc, Wc)]
+    res.update(deblock_rows(planes, prep, BAND_H, 8, 8, "_halo", fmt_name, halo))
+    check_exact(res)
+    return res
+
+
+def dist_run(dev, label: str, name: str, shape: tuple, kind: str, mode, want: dict) -> dict:
+    """Decode a committed stream through ShardedDecoder or GopParallelDecoder
+    on a mesh that repeats `dev` (launch counters set to 0 just before the
+    checked decode, read just after): every frame against the committed
+    MD5s, the frames' mode, every kernel of the run launched (the *_halo
+    launches where bands pass rows between them, none elsewhere), one device
+    kernel per call. frames/s from the median wall of three decodes, each
+    timed to the last frame's host planes."""
+    from h264decode_tpu_torch.dist.decoder import ShardedDecoder
+    from h264decode_tpu_torch.dist.gop import GopParallelDecoder
+    from h264decode_tpu_torch.dist.mesh import make_mesh
+    from h264decode_tpu_torch.kernels import _build
+
+    G, R = shape
+    mesh = make_mesh(G, R, devices=[dev] * (G * R))
+    with open(os.path.join(DATA, name), "rb") as f:
+        bs = f.read()
+
+    def decode():
+        dec = ShardedDecoder(mesh) if kind == "sharded" else GopParallelDecoder(mesh)
+        t0 = time.perf_counter()
+        frames = dec.decode_stream(bs)  # host planes: every frame is done on the card
+        wall = time.perf_counter() - t0
+        if kind == "sharded":
+            dec.close()
+        return dec, frames, wall
+
+    decode()  # first-call costs (allocator, tables)
+    _build.launches.clear()
+    _build.device_kernels.clear()
+    dec, frames, wall = decode()
+    names = ROW_KERNELS + HALO_KERNELS
+    launches = {k: _build.launches[k] for k in names}
+    kernels = {k: _build.device_kernels[k] for k in names}
+    got = [md5s(fr.planes()) for fr in frames]
+    if got != want["frames"]:
+        bad = [i for i, (g, w) in enumerate(zip(got, want["frames"])) if g != w]
+        raise RuntimeError(f"{label}: frames {bad} differ from libavcodec "
+                           f"({len(got)} decoded, {len(want['frames'])} expected)")
+    if dict(dec.modes) != {mode: len(frames)}:
+        raise RuntimeError(f"{label}: frames took the modes {dict(dec.modes)}, not {mode}")
+    expect = ROW_KERNELS + (HALO_KERNELS if R > 1 and mode != "aligned" else ())
+    missing = [k for k in expect if launches[k] == 0]
+    stray = {k: v for k, v in launches.items() if k not in expect and v}
+    many = {k: kernels[k] / launches[k] for k in expect
+            if launches[k] and kernels[k] != launches[k]}
+    if missing or stray or many:
+        raise RuntimeError(f"{label}: kernels never launched {missing}, launched where no "
+                           f"rows pass between bands {stray}, device kernels per call {many}")
+    walls = [wall] + [decode()[2] for _ in range(2)]
+    fps = len(frames) / statistics.median(walls)
+    log(f"{label} ({name}): {len(frames)} frames bit-exact vs libavcodec MD5s; walls {walls} s, "
+        f"median -> {fps} frames/s; wrapper calls {launches}; device kernels {kernels}")
+    return dict(run=label, stream=name, mesh=f"{G}x{R}", frames=len(frames), fps=fps,
+                walls_s=walls, launches=launches)
+
+
+def dist_phase(dev, want: dict, kernels: dict) -> list:
+    """ShardedDecoder (1x1, 1x2 and 1x4 halo, 1x4 aligned) and GopParallelDecoder
+    (2x1, 2x2) on meshes that repeat cuda:0, each beside GpuDecoder on the
+    same stream (median of three decodes after a warm one), and the CLI's
+    sharded backend on a 1x1 mesh of the card. The 1x4 halo run's launches
+    fill the *_halo rows of the kernel table."""
+    runs = [dist_run(dev, *r, want[r[1]]) for r in DIST_RUNS]
+    single = {}
+    for name in dict.fromkeys(r["stream"] for r in runs):
+        with open(os.path.join(DATA, name), "rb") as f:
+            bs = f.read()
+        decode_timed(dev, bs)  # first-call costs
+        walls = [decode_timed(dev, bs)[1] for _ in range(3)]
+        single[name] = len(want[name]["frames"]) / statistics.median(walls)
+        log(f"GpuDecoder on {name}: walls {walls} s -> {single[name]} frames/s")
+    for r in runs:
+        r["gpu_decoder_fps"] = single[r["stream"]]
+        r["fps_over_gpu_decoder"] = r["fps"] / single[r["stream"]]
+        if r["run"] == HALO_RUN:
+            for k in HALO_KERNELS:
+                kernels[k]["launches"] = r["launches"][k]
+                kernels[k]["launch_stream"] = f"{r['stream']} (ShardedDecoder {r['mesh']})"
+    # the CLI entry point with the sharded backend: a 1x1 mesh of the card
+    name = DIST_RUNS[0][1]
+    os.makedirs(OUT, exist_ok=True)
+    y4m = os.path.join(OUT, "sharded_" + name.replace(".h264", ".y4m"))
+    res = subprocess.run(
+        [sys.executable, "-m", "h264decode_tpu_torch", "decode", os.path.join(DATA, name), y4m,
+         "--backend", "sharded", "--mesh", "1x1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    if res.returncode != 0:
+        raise RuntimeError(f"CLI sharded decode of {name} failed:\n{res.stdout}\n{res.stderr}")
+    if y4m_md5s(y4m, want[name]) != want[name]["frames"]:
+        raise RuntimeError(f"CLI sharded decode of {name}: frames differ from libavcodec")
+    os.remove(y4m)
+    log(f"{name}: CLI decode --backend sharded --mesh 1x1 bit-exact "
+        f"({res.stdout.splitlines()[0]})")
+    return runs
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="smoke test of the port on one GPU")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    phases = ap.parse_args(argv).phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -723,7 +935,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     log(f"card: {card_line()}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
+        f"phases {phases}")
     t0 = time.time()
     secs, logs = _build.build_all()
     t1 = time.time()
@@ -738,34 +951,43 @@ def main() -> int:
         for line in v.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {k}: {line.strip()}")
-
-    kernels, base = {}, {}
-    for cat, bd in FORMATS:
-        if cat == 3:  # takes the 4:2:0 8-bit phase's luma inputs
-            kernels.update(planes_phase(dev, base[(1, 8)]))
-        else:
-            rows, base[(cat, bd)] = kernel_phase(dev, cat, bd)
-            kernels.update(rows)
-    log(f"kernel phases done at {time.time() - t0:.1f} s")
     with open(os.path.join(DATA, "smoke_md5.json")) as f:
         want = json.load(f)
-    paths = {}
-    for name, suffix, traced in STREAMS:
-        mp = paths[name] = main_path(dev, name, want[name], traced)
-        if suffix is None:
-            continue
-        # the launches of the format's main-path stream fill its rows
-        for k in mp["launches"]:
-            row = kernels[k + suffix]
-            row["launches"] = mp["launches"][k]
-            row["launch_stream"] = name
-            row["inner_launches_per_call"] = mp["kernels"][k] / mp["launches"][k]
-    serve_s = serve_phase(SERVE_STREAM, want[SERVE_STREAM])
+
+    kernels, base, table = {}, {}, {}
+    if "kernels" in phases:
+        for cat, bd in FORMATS:
+            if cat == 3:  # takes the 4:2:0 8-bit phase's luma inputs
+                kernels.update(planes_phase(dev, base[(1, 8)]))
+            else:
+                rows, base[(cat, bd)] = kernel_phase(dev, cat, bd)
+                kernels.update(rows)
+        log(f"kernel phases done at {time.time() - t0:.1f} s")
+    if "main" in phases:
+        paths = {}
+        for name, suffix, traced in STREAMS:
+            mp = paths[name] = main_path(dev, name, want[name], traced)
+            if suffix is None or not kernels:
+                continue
+            # the launches of the format's main-path stream fill its rows
+            for k in mp["launches"]:
+                row = kernels[k + suffix]
+                row["launches"] = mp["launches"][k]
+                row["launch_stream"] = name
+                row["inner_launches_per_call"] = mp["kernels"][k] / mp["launches"][k]
+        table["main_path"] = [{"stream": k, "frames_per_s": v["fps"], "frames": v["frames"]}
+                              for k, v in paths.items()]
+        log(f"main path done at {time.time() - t0:.1f} s")
+    if "serve" in phases:
+        table["serve"] = {"stream": SERVE_STREAM,
+                          "wall_s": serve_phase(SERVE_STREAM, want[SERVE_STREAM])}
+    if "dist" in phases:
+        t_dist = time.time()
+        kernels.update(halo_phase(dev))
+        table["dist"] = dist_phase(dev, want, kernels)
+        log(f"dist phase {time.time() - t_dist:.1f} s")
     log(f"setup+run {time.time() - t0:.1f} s")
-    log(json.dumps({"kernels": list(kernels.values()),
-                    "main_path": [{"stream": k, "frames_per_s": v["fps"],
-                                   "frames": v["frames"]} for k, v in paths.items()],
-                    "serve": {"stream": SERVE_STREAM, "wall_s": serve_s}}))
+    log(json.dumps({"kernels": list(kernels.values()), **table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,18 +1,24 @@
-"""Command-line interface: decode / probe / serve.
+"""Command-line interface: decode / probe / serve / bench.
 
 Usage:
-  python -m h264decode_tpu_torch decode in.h264 out.y4m [--backend gpu|numpy]
-      [--device cuda|cpu] [--no-deblock] [--metrics]
+  python -m h264decode_tpu_torch decode in.h264 out.y4m
+      [--backend gpu|numpy|sharded|gop] [--mesh GxR] [--device cuda|cpu]
+      [--no-deblock] [--metrics]
   python -m h264decode_tpu_torch probe in.h264 [--access-points]
   python -m h264decode_tpu_torch serve [--host 127.0.0.1] [--port 8000]
       [--out-dir .] [--once] [--backend gpu|numpy] [--device cuda|cpu]
+  python -m h264decode_tpu_torch bench [--device cuda|cpu]
 
 The gpu backend runs on the CUDA device unless --device cpu asks for the
-CPU (the plain torch versions of the kernels). `serve` is a TCP ingest
-server: each connection's bytes are one Annex-B stream, decoded by a
-decoder of its own into <out-dir>/stream_<n>.y4m as the DPB outputs
-frames. The backends `sharded` and `gop` are not ported yet (ROADMAP.md,
-Queue A).
+CPU (the plain torch versions of the kernels). The multi-device backends
+run on a ("gop", "row") mesh of GxR devices (dist/): `sharded` cuts each
+frame into R row bands (gop slot 0), `gop` decodes closed GOPs on G slots
+in parallel, each in R bands. Their mesh takes the visible CUDA devices (so
+one card gives 1x1); with --device cpu it repeats the CPU device G*R times.
+`serve` is a TCP ingest server: each connection's bytes are one Annex-B
+stream, decoded by a decoder of its own into <out-dir>/stream_<n>.y4m as the
+DPB outputs frames. `bench` prints the decode-throughput JSON line of
+h264decode_tpu_torch/bench.py.
 """
 
 from __future__ import annotations
@@ -25,18 +31,34 @@ import sys
 import threading
 import time
 
-_NOT_PORTED = {
-    "sharded": "ROADMAP.md, Queue A item 3",
-    "gop": "ROADMAP.md, Queue A item 3",
-}
+
+def _parse_mesh(spec: str, device: str = "cuda"):
+    """"GxR" -> a ("gop", "row") mesh (e.g. --mesh 2x4; empty: the JAX
+    package's factoring of every device). CUDA devices are the visible
+    ones; --device cpu repeats the CPU G*R times. A single named device
+    (cuda:N) is refused: the mesh would not be built from it."""
+    from ..dist.mesh import make_mesh
+
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"--device {device}: the sharded and gop backends take every "
+                         "visible CUDA device (--device cuda) or the CPU (--device cpu)")
+    g, r = (int(v) for v in spec.lower().split("x")) if spec else (None, None)
+    if device == "cpu":
+        return make_mesh(g, r, devices=["cpu"] * ((g or 1) * (r or 1)))
+    return make_mesh(g, r)
 
 
 def _make_decoder(backend: str, apply_deblock: bool, device: str = "cuda",
-                  metrics=None):
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet ({_NOT_PORTED[backend]})"
-        )
+                  metrics=None, mesh: str = ""):
+    if backend == "sharded":
+        from ..dist.decoder import ShardedDecoder
+
+        return ShardedDecoder(_parse_mesh(mesh, device), apply_deblock=apply_deblock,
+                              metrics=metrics)
+    if backend == "gop":
+        from ..dist.gop import GopParallelDecoder
+
+        return GopParallelDecoder(_parse_mesh(mesh, device), apply_deblock=apply_deblock)
     if backend == "gpu":
         from ..pipeline.gpu_pipeline import GpuDecoder
 
@@ -61,7 +83,7 @@ def cmd_decode(args) -> int:
     metrics = DecodeMetrics()
     with open(args.input, "rb") as f:
         data = f.read()
-    dec = _make_decoder(args.backend, not args.no_deblock, args.device, metrics)
+    dec = _make_decoder(args.backend, not args.no_deblock, args.device, metrics, args.mesh)
     try:
         t0 = time.time()
         if args.seek:
@@ -193,6 +215,12 @@ def cmd_serve(args) -> int:
         _close(dec)
 
 
+def cmd_bench(args) -> int:
+    from ..bench import main as bench_main
+
+    return bench_main(args.device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="h264decode_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -201,10 +229,16 @@ def main(argv=None) -> int:
     d.add_argument("output")
     d.add_argument(
         "--backend", choices=["gpu", "numpy", "sharded", "gop"], default="gpu",
-        help="gpu: the GPU frame program; numpy: the host oracle",
+        help="gpu: the GPU frame program; sharded: row bands over a mesh; gop: "
+        "GOP-parallel slots of row bands over a mesh; numpy: the host oracle",
+    )
+    d.add_argument(
+        "--mesh", default="",
+        help='("gop","row") mesh shape as GxR, e.g. 1x2 (sharded/gop backends)',
     )
     d.add_argument("--device", default="cuda",
-                   help="torch device of the gpu backend (cuda, cuda:N or cpu)")
+                   help="torch device of the gpu backend (cuda, cuda:N or cpu); the "
+                   "sharded/gop mesh takes every visible card (cuda) or repeats the CPU (cpu)")
     d.add_argument(
         "--seek", type=int, default=0, metavar="N",
         help="resume decoding at the first access point at/after picture N",
@@ -229,6 +263,9 @@ def main(argv=None) -> int:
     s.add_argument("--device", default="cuda",
                    help="torch device of the gpu backend (cuda, cuda:N or cpu)")
     s.set_defaults(fn=cmd_serve)
+    b = sub.add_parser("bench", help="decode-throughput benchmark (one JSON line)")
+    b.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    b.set_defaults(fn=cmd_bench)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -85,9 +85,17 @@
 // kernels/deblock_prep_dev.py derives them: bs_v/bs_h (and bs_hc for 4:2:2),
 // luma indexA/indexB ia_*/ib_*, chroma ca_*/cb_*. tabs = alpha[52], beta[52], tc0[52][3] (Table
 // 8-16/8-17), int32. bS must be 0 on the picture's boundary edges (the prep
-// guarantees it); the kernels never read outside the picture. Each entry
-// also takes sync, int32[1 + P * mb_h] of scratch (P = 1 for chroma), which
-// it zeroes on the stream before the launch.
+// guarantees it); the kernels never read outside the picture, except into a
+// halo: luma halo T [P, 4, W], chroma halo_cb / halo_cr T [4, Wc] each, or
+// null pointers. A halo holds the 4 filtered rows above MB row 0, the bottom
+// of the band above in row-band sharding (h264decode_tpu_torch/dist/
+// sharded.py), the counterpart of the JAX wavefront's halo argument
+// (h264decode_tpu/kernels/deblock.py:118-141). With one, MB row 0 is a row
+// like any other: its top edges filter where bS says so, reading the halo as
+// the rows above (no wait: no block of the launch writes them before), and
+// the rows they modify (3 luma, 1 chroma) are written back into the halo.
+// Each entry also takes sync, int32[1 + P * mb_h] of scratch (P = 1 for
+// chroma), which it zeroes on the stream before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -227,8 +235,8 @@ __global__ void __launch_bounds__(16) deblock_luma_rows(
     T* planes, const int* __restrict__ bs_v, const int* __restrict__ bs_h,
     const int* __restrict__ ia_v, const int* __restrict__ ib_v,
     const int* __restrict__ ia_h, const int* __restrict__ ib_h,
-    const int* __restrict__ tabs, int* sync, int n_planes, int mb_h, int mb_w, int bd_scale,
-    int mx_arg) {
+    const int* __restrict__ tabs, T* halo, int* sync, int n_planes, int mb_h, int mb_w,
+    int bd_scale, int mx_arg) {
   __shared__ __align__(16) T tile[20][20];
   __shared__ int prm[6][16];
   const int sc = scale_of<T>(bd_scale), mx = max_of<T>(mx_arg);
@@ -238,6 +246,10 @@ __global__ void __launch_bounds__(16) deblock_luma_rows(
   T* y = planes + static_cast<size_t>(tk.plane) * (16 * mb_h) * W;
   const int toff = tk.plane * (4 * mb_h) * W4;  // the plane's threshold grids
   int* progress = sync + tk.plane * mb_h;       // the plane's counters
+  // the 4 rows above this row: the plane's, or at row 0 the halo's (if any)
+  T* hl = halo ? halo + static_cast<size_t>(tk.plane) * 4 * W : nullptr;
+  const bool above = row > 0 || hl != nullptr;
+  T* up = row > 0 ? y + (16 * row - 4) * W : hl;
   const int t = threadIdx.x;
   const int* grids[6] = {bs_v, ia_v + toff, ib_v + toff, bs_h, ia_h + toff, ib_h + toff};
   const int cell0 = (4 * row + (t >> 2)) * W4 + (t & 3);  // thread t's cell of MB 0
@@ -277,16 +289,16 @@ __global__ void __launch_bounds__(16) deblock_luma_rows(
       // them. Row-1's lines under MB x are final only once row-1
       // has finished MB x+1 (its left-edge filter rewrites columns
       // 16x+12 .. 16x+15): hence the wait, before the top edge alone.
-      const bool top = row > 0 && (prm[3][0] | prm[3][1] | prm[3][2] | prm[3][3]) > 0;
+      const bool top = above && (prm[3][0] | prm[3][1] | prm[3][2] | prm[3][3]) > 0;
       if (top) {
-        wavefront::wait_row(progress, row, min(mbx + 2, mb_w));
-        if (t < 4) put_line16(&tile[t][4], load_line16(y + (16 * row - 4 + t) * W + 16 * mbx));
+        wavefront::wait_row(progress, row, min(mbx + 2, mb_w));  // none at row 0
+        if (t < 4) put_line16(&tile[t][4], load_line16(up + t * W + 16 * mbx));
       }
       __syncthreads();
       // horizontal edges, top to bottom: thread t owns column t
       for (int e = 0; e < 4; ++e) {
         const int c = 4 * e + (t >> 2), bs = prm[3][c];
-        if (bs > 0 && (row > 0 || e > 0))
+        if (bs > 0 && (above || e > 0))
           filter_luma_line(&tile[4 + 4 * e][4 + t], 20, bs, prm[4][c], prm[5][c], tabs, sc, mx);
       }
       __syncthreads();
@@ -294,7 +306,7 @@ __global__ void __launch_bounds__(16) deblock_luma_rows(
       T* g = line + 16 * mbx;
       if (mbx > 0) copy_n<T, 4>(g - 4, &tile[4 + t][0]);
       store_line16(g, &tile[4 + t][4]);
-      if (top && t < 3) store_line16(y + (16 * row - 3 + t) * W + 16 * mbx, &tile[1 + t][4]);
+      if (top && t < 3) store_line16(up + (1 + t) * W + 16 * mbx, &tile[1 + t][4]);
     }
     // the MB's last 4 columns are the next MB's left strip (own line only)
     copy_n<T, 4>(&tile[4 + t][0], &tile[4 + t][16]);
@@ -326,7 +338,8 @@ __global__ void __launch_bounds__(2 * CH_H) deblock_chroma_rows(
     T* cb, T* cr, const int* __restrict__ bs_v, const int* __restrict__ bs_hc,
     const int* __restrict__ ca_v, const int* __restrict__ cb_v,
     const int* __restrict__ ca_h, const int* __restrict__ cb_h,
-    const int* __restrict__ tabs, int* sync, int mb_h, int mb_w, int bd_scale, int mx_arg) {
+    const int* __restrict__ tabs, T* halo_cb, T* halo_cr, int* sync, int mb_h, int mb_w,
+    int bd_scale, int mx_arg) {
   constexpr int RV = CH_H / 4;  // chroma lines per luma cell row
   __shared__ __align__(16) T tile[2][2 + CH_H][16];
   const int sc = scale_of<T>(bd_scale), mx = max_of<T>(mx_arg);
@@ -335,6 +348,11 @@ __global__ void __launch_bounds__(2 * CH_H) deblock_chroma_rows(
   const int c = threadIdx.x / CH_H, t = threadIdx.x % CH_H, col = t & 7;
   T (*tl)[16] = tile[c];
   T* pl = c ? cr : cb;
+  // the 2 rows above this row that the top edge reads: the plane's, or at
+  // row 0 the last 2 of the component's halo (if any)
+  T* hl = c ? halo_cr : halo_cb;
+  const bool above = row > 0 || hl != nullptr;
+  T* up = row > 0 ? pl + (CH_H * row - 2) * Wc : (hl ? hl + 2 * Wc : nullptr);
   const int coff = c * H4 * W4;  // component plane of the [2, H4, W4] grids
   const int vcell = (4 * row + t / RV) * W4;     // + 4*mbx + 2*ei: line t's cells
   const int hcell = 4 * row * W4 + (col >> 1);   // + hedge*W4 + 4*mbx: column's
@@ -394,19 +412,19 @@ __global__ void __launch_bounds__(2 * CH_H) deblock_chroma_rows(
       // filter rewrites column 8x+7 of lines L*row-L .. L*row-1: hence
       // need = x+2, before the top edge alone. For 4:2:2 that argument is
       // the 4:2:0 one with 16 lines in place of 8; the chain stays 254 steps.
-      const bool top = __syncthreads_or(row > 0 && hedge<CH_H>(t, 0) == 0 && ph[0][0] > 0);
+      const bool top = __syncthreads_or(above && hedge<CH_H>(t, 0) == 0 && ph[0][0] > 0);
       if (top) {
-        wavefront::wait_row(sync, row, min(mbx + 2, mb_w));
+        wavefront::wait_row(sync, row, min(mbx + 2, mb_w));  // none at row 0
         if (t < 2)
-          *reinterpret_cast<VecOf<T, 8>*>(&tl[t][8]) = __ldcg(
-              reinterpret_cast<const VecOf<T, 8>*>(pl + (CH_H * row - 2 + t) * Wc + 8 * mbx));
+          *reinterpret_cast<VecOf<T, 8>*>(&tl[t][8]) =
+              __ldcg(reinterpret_cast<const VecOf<T, 8>*>(up + t * Wc + 8 * mbx));
       }
       __syncthreads();
       // horizontal edges: thread t owns column t & 7 at its two edges
 #pragma unroll
       for (int ei = 0; ei < 2; ++ei) {
         const int e = hedge<CH_H>(t, ei);
-        if (ph[0][ei] > 0 && (row > 0 || e > 0))
+        if (ph[0][ei] > 0 && (above || e > 0))
           filter_chroma_line(&tl[2 + RV * e][8 + col], 16, ph[0][ei], ph[1][ei], ph[2][ei], tabs,
                              sc, mx);
       }
@@ -419,7 +437,7 @@ __global__ void __launch_bounds__(2 * CH_H) deblock_chroma_rows(
       T* g = line + 8 * mbx;
       if (mbx > 0) g[-1] = tl[2 + t][7];
       copy_n<T, 8>(g, &tl[2 + t][8]);
-      if (top && t == 0) copy_n<T, 8>(pl + (CH_H * row - 1) * Wc + 8 * mbx, &tl[1][8]);
+      if (top && t == 0) copy_n<T, 8>(up + Wc + 8 * mbx, &tl[1][8]);
     }
     // the MB's last 2 columns are the next MB's left strip (own line only)
     copy_n<T, 2>(&tl[2 + t][6], &tl[2 + t][14]);
@@ -432,11 +450,12 @@ __global__ void __launch_bounds__(2 * CH_H) deblock_chroma_rows(
 // planes: the number of [H, W] planes in y and of [H4, W4] grids in ia_* /
 // ib_* (1, or 3 for 4:4:4); sample_bytes: 1 (uint8_t samples, 8-bit) or 2
 // (uint16_t, 9 to 14 bits); bd_scale = 1 << (bd - 8) and mx = (1 << bd) - 1
-// (read for 2-byte samples)
+// (read for 2-byte samples); halo: the [planes, 4, W] rows above MB row 0,
+// read and written back, or null
 extern "C" int deblock_luma(void* y, const void* bs_v, const void* bs_h, const void* ia_v,
                             const void* ib_v, const void* ia_h, const void* ib_h,
-                            const void* tabs, void* sync, int planes, int mb_h, int mb_w,
-                            int sample_bytes, int bd_scale, int mx, void* stream,
+                            const void* tabs, void* halo, void* sync, int planes, int mb_h,
+                            int mb_w, int sample_bytes, int bd_scale, int mx, void* stream,
                             int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
@@ -452,23 +471,26 @@ extern "C" int deblock_luma(void* y, const void* bs_v, const void* bs_h, const v
   const int blocks = planes * mb_h;
   if (sample_bytes == 1)
     deblock_luma_rows<uint8_t><<<blocks, 16, 0, s>>>(static_cast<uint8_t*>(y), pv, ph, av, bv,
-                                                     ah, bh, tb, ps, planes, mb_h, mb_w,
-                                                     bd_scale, mx);
+                                                     ah, bh, tb, static_cast<uint8_t*>(halo),
+                                                     ps, planes, mb_h, mb_w, bd_scale, mx);
   else
     deblock_luma_rows<uint16_t><<<blocks, 16, 0, s>>>(static_cast<uint16_t*>(y), pv, ph, av,
-                                                      bv, ah, bh, tb, ps, planes, mb_h, mb_w,
-                                                      bd_scale, mx);
+                                                      bv, ah, bh, tb,
+                                                      static_cast<uint16_t*>(halo), ps, planes,
+                                                      mb_h, mb_w, bd_scale, mx);
   *n_launched = 1;
   return static_cast<int>(cudaGetLastError());
 }
 
 // ch_h: chroma MB height, 8 (4:2:0) or 16 (4:2:2); bs_hc: the horizontal
-// chroma bS grid (bs_h for 4:2:0, the prep's bs_hc for 4:2:2)
+// chroma bS grid (bs_h for 4:2:0, the prep's bs_hc for 4:2:2); halo_cb /
+// halo_cr: the [4, Wc] rows above MB row 0, read and written back, or null
 extern "C" int deblock_chroma(void* cb, void* cr, const void* bs_v, const void* bs_hc,
                               const void* ca_v, const void* cb_v, const void* ca_h,
-                              const void* cb_h, const void* tabs, void* sync, int mb_h,
-                              int mb_w, int ch_h, int sample_bytes, int bd_scale, int mx,
-                              void* stream, int* n_launched) {
+                              const void* cb_h, const void* tabs, void* halo_cb,
+                              void* halo_cr, void* sync, int mb_h, int mb_w, int ch_h,
+                              int sample_bytes, int bd_scale, int mx, void* stream,
+                              int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
   if ((sample_bytes != 1 && sample_bytes != 2) || (ch_h != 8 && ch_h != 16))
@@ -482,20 +504,22 @@ extern "C" int deblock_chroma(void* cb, void* cr, const void* bs_v, const void* 
   int* ps = static_cast<int*>(sync);
   if (sample_bytes == 1) {
     uint8_t *b = static_cast<uint8_t*>(cb), *r = static_cast<uint8_t*>(cr);
+    uint8_t *hb = static_cast<uint8_t*>(halo_cb), *hr = static_cast<uint8_t*>(halo_cr);
     if (ch_h == 8)
-      deblock_chroma_rows<uint8_t, 8><<<mb_h, 16, 0, s>>>(b, r, pv, ph, av, bv, ah, bh, tb, ps,
-                                                          mb_h, mb_w, bd_scale, mx);
+      deblock_chroma_rows<uint8_t, 8><<<mb_h, 16, 0, s>>>(b, r, pv, ph, av, bv, ah, bh, tb, hb,
+                                                          hr, ps, mb_h, mb_w, bd_scale, mx);
     else
-      deblock_chroma_rows<uint8_t, 16><<<mb_h, 32, 0, s>>>(b, r, pv, ph, av, bv, ah, bh, tb, ps,
-                                                           mb_h, mb_w, bd_scale, mx);
+      deblock_chroma_rows<uint8_t, 16><<<mb_h, 32, 0, s>>>(b, r, pv, ph, av, bv, ah, bh, tb, hb,
+                                                           hr, ps, mb_h, mb_w, bd_scale, mx);
   } else {
     uint16_t *b = static_cast<uint16_t*>(cb), *r = static_cast<uint16_t*>(cr);
+    uint16_t *hb = static_cast<uint16_t*>(halo_cb), *hr = static_cast<uint16_t*>(halo_cr);
     if (ch_h == 8)
-      deblock_chroma_rows<uint16_t, 8><<<mb_h, 16, 0, s>>>(b, r, pv, ph, av, bv, ah, bh, tb, ps,
-                                                           mb_h, mb_w, bd_scale, mx);
+      deblock_chroma_rows<uint16_t, 8><<<mb_h, 16, 0, s>>>(b, r, pv, ph, av, bv, ah, bh, tb, hb,
+                                                           hr, ps, mb_h, mb_w, bd_scale, mx);
     else
-      deblock_chroma_rows<uint16_t, 16><<<mb_h, 32, 0, s>>>(b, r, pv, ph, av, bv, ah, bh, tb,
-                                                            ps, mb_h, mb_w, bd_scale, mx);
+      deblock_chroma_rows<uint16_t, 16><<<mb_h, 32, 0, s>>>(b, r, pv, ph, av, bv, ah, bh, tb, hb,
+                                                            hr, ps, mb_h, mb_w, bd_scale, mx);
   }
   *n_launched = 1;
   return static_cast<int>(cudaGetLastError());

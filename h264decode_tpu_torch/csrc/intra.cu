@@ -65,9 +65,16 @@
 // shapes;
 // params [nMB, 20] = kind, i16mode, cmode, avail bits (1 left, 2 top,
 // 4 top-right, 8 top-left), modes4[16] (z-order; 8x8 modes in the first 4).
-// Samples outside the picture read as 0, as in the plain version. Each entry
-// also takes sync, int32[1 + P * mb_h] of scratch (P = 1 for chroma), which
-// it zeroes on the stream before the launch.
+// Samples outside the picture read as 0, as in the plain version, except
+// the row above MB row 0 where the caller gives it: top (luma, int32
+// [P, W]) and top_cb / top_cr (int32 [Wc] each), or null pointers. That is
+// the halo input of row-band sharding (h264decode_tpu_torch/dist/sharded.py):
+// a band's MB row 0 predicts from the unfiltered bottom row of the band
+// above, the counterpart of the JAX wavefront's top argument
+// (h264decode_tpu/kernels/intra.py:401). No block writes it, so it is read
+// at row 0 like any row above, with no wait (columns -1 and W.. read as 0).
+// Each entry also takes sync, int32[1 + P * mb_h] of scratch (P = 1 for
+// chroma), which it zeroes on the stream before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,8 +158,9 @@ __device__ int pred_nxn(int mode, int x, int y, const int* t, const int* l, int 
 // parameter row.
 template <bool BD8>
 __global__ void __launch_bounds__(256) intra_luma_rows(
-    int* planes, const int* __restrict__ resid, const int* __restrict__ prm, int* sync,
-    int n_planes, int mb_h, int mb_w, int mid_arg, int mx_arg) {
+    int* planes, const int* __restrict__ resid, const int* __restrict__ prm,
+    const int* __restrict__ top, int* sync, int n_planes, int mb_h, int mb_w, int mid_arg,
+    int mx_arg) {
   const int mid = BD8 ? 128 : mid_arg, mx = BD8 ? 255 : mx_arg;
   __shared__ int sm[17][25];
   __shared__ int rs[16][16];
@@ -164,6 +172,7 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
   int* y = planes + plane_off;
   const int* res = resid + plane_off;
   int* progress = sync + tk.plane * mb_h;  // this plane's counters
+  const int* top_row = top ? top + static_cast<size_t>(tk.plane) * W : nullptr;
   const int tid = threadIdx.x, px = tid & 15, py = tid >> 4;
   const int* res_row = res + (16 * row + py) * W + px;
   const int* prm_row = prm + row * mb_w * NPARAM;
@@ -189,7 +198,9 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
     wavefront::wait_row(progress, row, min(mbx + 2, mb_w));
     if (tid < 25) {
       const int gc = 16 * mbx - 1 + tid;
-      sm[0][tid] = (row > 0 && gc >= 0 && gc < W) ? __ldcg(y + (16 * row - 1) * W + gc) : 0;
+      sm[0][tid] = (gc < 0 || gc >= W) ? 0
+                   : row > 0 ? __ldcg(y + (16 * row - 1) * W + gc)
+                   : top_row ? __ldg(top_row + gc) : 0;
     }
     __syncthreads();
     const int av = sp[3];
@@ -285,7 +296,8 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
 
 // Chroma: one block of 16 * CH_H threads per MB row; thread tid covers
 // sample (yy, x) = ((tid >> 3) % CH_H, tid & 7) of component tid / (8 * CH_H)
-// (0 Cb, 1 Cr). top[c][i] holds picture sample (CH_H*row - 1, 8*mbx - 1 + i):
+// (0 Cb, 1 Cr). top[c][i] holds picture sample (CH_H*row - 1, 8*mbx - 1 + i)
+// (at row 0, from top_cb / top_cr when given):
 // the corner and the 8 samples above. left[mbx & 1][c] holds the CH_H
 // samples to the left (double-buffered by MB parity, so the MB's right
 // column can be stored for the next MB while other threads still read this
@@ -293,7 +305,8 @@ __global__ void __launch_bounds__(256) intra_luma_rows(
 template <int CH_H, bool BD8>
 __global__ void __launch_bounds__(16 * CH_H) intra_chroma_rows(
     int* cb, int* cr, const int* __restrict__ rcb, const int* __restrict__ rcr,
-    const int* __restrict__ prm, int* sync, int mb_h, int mb_w, int mid_arg, int mx_arg) {
+    const int* __restrict__ prm, const int* __restrict__ top_cb, const int* __restrict__ top_cr,
+    int* sync, int mb_h, int mb_w, int mid_arg, int mx_arg) {
   const int mid = BD8 ? 128 : mid_arg, mx = BD8 ? 255 : mx_arg;
   constexpr int NC = 8 * CH_H;  // samples (threads) per component
   constexpr int YC = CH_H / 2;  // plane-mode centre row offset: 4 (4:2:0), 8 (4:2:2)
@@ -303,6 +316,7 @@ __global__ void __launch_bounds__(16 * CH_H) intra_chroma_rows(
   const int Wc = mb_w * 8;
   const int c = threadIdx.x / NC, i = threadIdx.x % NC, x = i & 7, yy = i >> 3;
   int* pl = c ? cr : cb;
+  const int* tp = c ? top_cr : top_cb;  // the row above MB row 0, or null
   const int* res = (c ? rcr : rcb) + (CH_H * row + yy) * Wc + x;
   const int* prm_row = prm + row * mb_w * NPARAM;
   // the next MB's residual sample and its kind / cmode / avail (no block
@@ -335,8 +349,10 @@ __global__ void __launch_bounds__(16 * CH_H) intra_chroma_rows(
     // finished MB x (need = x+1, not luma's x+2), and the chain is
     // mb_w + mb_h - 1 MB steps (187 at 1080p).
     wavefront::wait_row(sync, row, mbx + 1);
-    if (i < 9)  // samples outside the picture read as 0
-      top[c][i] = (row > 0 && c0 - 1 + i >= 0) ? __ldcg(pl + (r0 - 1) * Wc + c0 - 1 + i) : 0;
+    if (i < 9) {  // samples outside the picture read as 0
+      const int gc = c0 - 1 + i;
+      top[c][i] = gc < 0 ? 0 : row > 0 ? __ldcg(pl + (r0 - 1) * Wc + gc) : tp ? __ldg(tp + gc) : 0;
+    }
     __syncthreads();
     const bool avl = av & AV_L, avt = av & AV_T;
     const int* t = &top[c][1];  // t[-1] is the corner
@@ -376,10 +392,11 @@ __global__ void __launch_bounds__(16 * CH_H) intra_chroma_rows(
 
 }  // namespace
 
-// planes: the number of [H, W] planes in y and res (1, or 3 for 4:4:4)
-extern "C" int intra_luma(void* y, const void* res, const void* params, void* sync,
-                          int planes, int mb_h, int mb_w, int mid, int mx, void* stream,
-                          int* n_launched) {
+// planes: the number of [H, W] planes in y and res (1, or 3 for 4:4:4);
+// top: the [planes, W] row above MB row 0, or null
+extern "C" int intra_luma(void* y, const void* res, const void* params, const void* top,
+                          void* sync, int planes, int mb_h, int mb_w, int mid, int mx,
+                          void* stream, int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
   if (planes < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -387,20 +404,23 @@ extern "C" int intra_luma(void* y, const void* res, const void* params, void* sy
   if (e != cudaSuccess) return static_cast<int>(e);
   int* py = static_cast<int*>(y);
   const int *pr = static_cast<const int*>(res), *prm = static_cast<const int*>(params);
+  const int* pt = static_cast<const int*>(top);
   int* ps = static_cast<int*>(sync);
   const int blocks = planes * mb_h;
   if (mx == 255)
-    intra_luma_rows<true><<<blocks, 256, 0, s>>>(py, pr, prm, ps, planes, mb_h, mb_w, mid, mx);
+    intra_luma_rows<true><<<blocks, 256, 0, s>>>(py, pr, prm, pt, ps, planes, mb_h, mb_w, mid, mx);
   else
-    intra_luma_rows<false><<<blocks, 256, 0, s>>>(py, pr, prm, ps, planes, mb_h, mb_w, mid, mx);
+    intra_luma_rows<false><<<blocks, 256, 0, s>>>(py, pr, prm, pt, ps, planes, mb_h, mb_w, mid, mx);
   *n_launched = 1;
   return static_cast<int>(cudaGetLastError());
 }
 
-// ch_h: chroma MB height, 8 (4:2:0) or 16 (4:2:2)
+// ch_h: chroma MB height, 8 (4:2:0) or 16 (4:2:2); top_cb / top_cr: the [Wc]
+// rows above MB row 0, or null
 extern "C" int intra_chroma(void* cb, void* cr, const void* rcb, const void* rcr,
-                            const void* params, void* sync, int mb_h, int mb_w, int ch_h,
-                            int mid, int mx, void* stream, int* n_launched) {
+                            const void* params, const void* top_cb, const void* top_cr,
+                            void* sync, int mb_h, int mb_w, int ch_h, int mid, int mx,
+                            void* stream, int* n_launched) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *n_launched = 0;
   if (ch_h != 8 && ch_h != 16) return static_cast<int>(cudaErrorInvalidValue);
@@ -409,20 +429,21 @@ extern "C" int intra_chroma(void* cb, void* cr, const void* rcb, const void* rcr
   int *pcb = static_cast<int*>(cb), *pcr = static_cast<int*>(cr);
   const int *prcb = static_cast<const int*>(rcb), *prcr = static_cast<const int*>(rcr);
   const int* prm = static_cast<const int*>(params);
+  const int *tcb = static_cast<const int*>(top_cb), *tcr = static_cast<const int*>(top_cr);
   int* psync = static_cast<int*>(sync);
   const bool bd8 = mx == 255;
   if (ch_h == 8 && bd8)
-    intra_chroma_rows<8, true><<<mb_h, 128, 0, s>>>(pcb, pcr, prcb, prcr, prm, psync, mb_h,
-                                                    mb_w, mid, mx);
+    intra_chroma_rows<8, true><<<mb_h, 128, 0, s>>>(pcb, pcr, prcb, prcr, prm, tcb, tcr, psync,
+                                                    mb_h, mb_w, mid, mx);
   else if (ch_h == 8)
-    intra_chroma_rows<8, false><<<mb_h, 128, 0, s>>>(pcb, pcr, prcb, prcr, prm, psync, mb_h,
-                                                     mb_w, mid, mx);
+    intra_chroma_rows<8, false><<<mb_h, 128, 0, s>>>(pcb, pcr, prcb, prcr, prm, tcb, tcr, psync,
+                                                     mb_h, mb_w, mid, mx);
   else if (bd8)
-    intra_chroma_rows<16, true><<<mb_h, 256, 0, s>>>(pcb, pcr, prcb, prcr, prm, psync, mb_h,
-                                                     mb_w, mid, mx);
+    intra_chroma_rows<16, true><<<mb_h, 256, 0, s>>>(pcb, pcr, prcb, prcr, prm, tcb, tcr, psync,
+                                                     mb_h, mb_w, mid, mx);
   else
-    intra_chroma_rows<16, false><<<mb_h, 256, 0, s>>>(pcb, pcr, prcb, prcr, prm, psync, mb_h,
-                                                      mb_w, mid, mx);
+    intra_chroma_rows<16, false><<<mb_h, 256, 0, s>>>(pcb, pcr, prcb, prcr, prm, tcb, tcr,
+                                                      psync, mb_h, mb_w, mid, mx);
   *n_launched = 1;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 """Generate the committed smoke streams and their libavcodec MD5s.
 
-    python -m h264decode_tpu_torch.data.make_smoke_streams
+    python -m h264decode_tpu_torch.data.make_smoke_streams [NAME ...]
 
-Writes, next to this file:
+Writes, next to this file (only the NAMEd streams when any are given, their
+MD5s merged into smoke_md5.json):
   smoke_1080p_main_cabac.h264    1920x1080 Main CABAC, I/P/B with 2 B-frames,
                                  x264 preset fast, QP 28, 8 frames (the stream
                                  recipe of bench.py's default content)
@@ -24,6 +25,16 @@ Writes, next to this file:
   smoke_cif_high444.h264         352x288 High 4:4:4 Predictive 8-bit CABAC,
                                  the CIF High options plus the JVT scaling
                                  lists (cqm=jvt), 8 frames
+  smoke_1080p_main_slices4_nodb.h264
+                                 the 1080p Main stream's recipe with 4
+                                 slices of 17 MB rows each and the
+                                 deblocking filter off (slices=4,
+                                 no-deblock=1): the aligned mode of a 1x4
+                                 row-band mesh (dist/), 8 frames
+  smoke_1080p_main_gop4.h264     the 1080p Main stream's recipe over 16
+                                 frames with an IDR every 4 (keyint=4,
+                                 min-keyint=4, scenecut=0): four closed
+                                 GOPs for GOP-parallel decoding (dist/gop.py)
   smoke_md5.json                 per stream: libavcodec's per-frame,
                                  per-plane MD5s (output order), its frame
                                  geometry, bit depth and chroma format.
@@ -43,6 +54,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -132,44 +144,60 @@ def golden_planes(golden, bit_depth: int):
     return out
 
 
-def main():
+def main(names=None):
     from ..golden import lavc
 
     cif = "8x8dct=1:slices=4:weightp=2:ref=3"
-    # name -> (stream, bit depth, chroma format)
+    # name -> () -> (stream, bit depth, chroma format)
     streams = {
-        "smoke_1080p_main_cabac.h264": (lavc.encode_x264(
+        "smoke_1080p_main_cabac.h264": lambda: (lavc.encode_x264(
             frames_1080p(), qp=28, profile="main", cabac=True, bframes=2,
             preset="fast", gop=8,
         ), 8, "420"),
-        "smoke_cif_high.h264": (lavc.encode_x264(
+        "smoke_cif_high.h264": lambda: (lavc.encode_x264(
             frames_cif(), qp=28, profile="high", cabac=True, bframes=2,
             preset="medium", gop=8, extra_x264=cif,
         ), 8, "420"),
-        "smoke_1080p_high422_10.h264": (lavc.encode_x264(
+        "smoke_1080p_high422_10.h264": lambda: (lavc.encode_x264(
             to_10bit(frames_1080p(ch=1080)), qp=28, profile="high422", csp="yuv422p10le",
             cabac=True, bframes=2, preset="fast", gop=8, extra_x264="8x8dct=1",
         ), 10, "422"),
-        "smoke_cif_high10.h264": (lavc.encode_x264(
+        "smoke_cif_high10.h264": lambda: (lavc.encode_x264(
             to_10bit(frames_cif()), qp=28, profile="high10", csp="yuv420p10le",
             cabac=True, bframes=2, preset="medium", gop=8, extra_x264=cif,
         ), 10, "420"),
-        "smoke_cif_gray.h264": (lavc.encode_x264(
+        "smoke_cif_gray.h264": lambda: (lavc.encode_x264(
             [(y,) for y, _, _ in frames_cif()], qp=28, profile="high", csp="gray",
             cabac=True, bframes=2, preset="medium", gop=8, extra_x264="8x8dct=1",
         ), 8, "gray"),
-        "smoke_1080p_high444.h264": (lavc.encode_x264(
+        "smoke_1080p_high444.h264": lambda: (lavc.encode_x264(
             with_444_chroma(frames_1080p()), qp=28, profile="high444", csp="yuv444p",
             cabac=True, bframes=2, preset="fast", gop=8, extra_x264="8x8dct=1",
         ), 8, "444"),
-        "smoke_cif_high444.h264": (lavc.encode_x264(
+        "smoke_cif_high444.h264": lambda: (lavc.encode_x264(
             with_444_chroma(frames_cif(), fade=0.06), qp=28, profile="high444",
             csp="yuv444p", cabac=True, bframes=2, preset="medium", gop=8,
             extra_x264=cif + ":cqm=jvt",
         ), 8, "444"),
+        "smoke_1080p_main_slices4_nodb.h264": lambda: (lavc.encode_x264(
+            frames_1080p(), qp=28, profile="main", cabac=True, bframes=2, preset="fast",
+            gop=8, extra_x264="slices=4:no-deblock=1",
+        ), 8, "420"),
+        "smoke_1080p_main_gop4.h264": lambda: (lavc.encode_x264(
+            frames_1080p(16), qp=28, profile="main", cabac=True, bframes=2, preset="fast",
+            gop=4, extra_x264="keyint=4:min-keyint=4:scenecut=0",
+        ), 8, "420"),
     }
+    unknown = set(names or ()) - set(streams)
+    if unknown:
+        raise SystemExit(f"unknown stream names: {sorted(unknown)}")
+    md5_path = os.path.join(HERE, "smoke_md5.json")
     md5 = {}
-    for name, (bs, bit_depth, chroma) in streams.items():
+    if names:
+        with open(md5_path) as f:
+            md5 = json.load(f)
+    for name in names or streams:
+        bs, bit_depth, chroma = streams[name]()
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(bs)
         golden = lavc.decode_annexb(bs)
@@ -181,10 +209,10 @@ def main():
             "frames": plane_md5s(golden_planes(golden, bit_depth)),
         }
         print(f"{name}: {len(bs)} bytes, {len(golden)} frames")
-    with open(os.path.join(HERE, "smoke_md5.json"), "w") as f:
+    with open(md5_path, "w") as f:
         json.dump(md5, f, indent=1)
         f.write("\n")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

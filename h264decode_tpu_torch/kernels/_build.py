@@ -32,12 +32,15 @@ NVCC_FLAGS = [
 ]
 
 #: kernel launches by wrapper name: each wrapper adds one where it launches
-#: its kernel (one ctypes call = one C entry call per frame), and nowhere else
+#: its kernel (one ctypes call = one C entry call per frame), and nowhere
+#: else; a launch given halo rows (row-band sharding) counts under the name
+#: + "_halo"
 launches: Counter = Counter()
 #: device kernels by wrapper name: each wrapper adds the number of <<<>>>
 #: launches its C entry reports having issued (1 for a persistent row
 #: wavefront)
 device_kernels: Counter = Counter()
+_count_lock = threading.Lock()
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -118,11 +121,17 @@ def launch(name: str, entry, *args) -> None:
     in `launches` and n in `device_kernels`, then raises if the entry
     returned a non-zero cudaError_t."""
     n = ctypes.c_int(0)
-    launches[name] += 1
     err = entry(*args, ctypes.addressof(n))
-    device_kernels[name] += n.value
+    with _count_lock:  # wrappers launch from several threads (dist/gop.py)
+        launches[name] += 1
+        device_kernels[name] += n.value
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def ptr(t):
+    """The device pointer of an optional input tensor (None: a null pointer)."""
+    return None if t is None else t.data_ptr()
 
 
 def check_tensor(t, shape, dtype, name: str) -> None:

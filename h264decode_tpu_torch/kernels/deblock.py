@@ -107,11 +107,18 @@ def filter_chroma(p, q, bs, index_a, index_b, tabs, bd_scale=1, mx=255):
 
 
 def deblock_frame(y, cb, cr, prep: dict, mb_h: int, mb_w: int, ch_h: int = 8,
-                  bd_scale: int = 1, mx: int = 255):
+                  bd_scale: int = 1, mx: int = 255, halo=None):
     """y [H, W], cb/cr [mb_h * ch_h, Wc] integer planes -> filtered planes
     in y's dtype (the port's sample dtype: uint8 at 8 bits, int16 above).
     ch_h: chroma MB height, 8 (4:2:0) or 16 (4:2:2, which reads prep's
-    bs_hc); bd_scale = 1 << (bd - 8); mx = (1 << bd) - 1."""
+    bs_hc); bd_scale = 1 << (bd - 8); mx = (1 << bd) - 1.
+
+    halo: optional (hy [4, W], hcb [4, Wc], hcr [4, Wc]), the filtered
+    bottom rows of the band above (row-band sharding). They seed the top
+    padding, so MB row 0's top edges filter across the band boundary where
+    prep's bS says so, and the function then returns ((y, cb, cr), halo'),
+    halo' being those rows as the top edges left them (up to 3 luma rows
+    and 1 chroma row change), for the caller to paste back."""
     dev = y.device
     i32 = torch.int32
     tabs = _tabs(dev)
@@ -126,6 +133,10 @@ def deblock_frame(y, cb, cr, prep: dict, mb_h: int, mb_w: int, ch_h: int = 8,
         t = torch.zeros((LPAD + Hc + ch_h + 8, LPAD + Wc), dtype=i32, device=dev)
         t[LPAD : LPAD + Hc, LPAD:] = c
         cps.append(t)
+    if halo is not None:
+        yp[:LPAD, LPAD:] = halo[0]
+        cps[0][:LPAD, LPAD:] = halo[1]
+        cps[1][:LPAD, LPAD:] = halo[2]
     bs_v, bs_h = prep["bs_v"], prep["bs_h"]
     bs_hc = prep["bs_hc"] if cf2 else bs_h
     ia_v, ib_v, ia_h, ib_h = prep["ia_v"], prep["ib_v"], prep["ia_h"], prep["ib_h"]
@@ -224,8 +235,11 @@ def deblock_frame(y, cb, cr, prep: dict, mb_h: int, mb_w: int, ch_h: int = 8,
         for c, cp in zip(cps, cpatch):
             c[cry, crx] = torch.where(v, cp, c[cry, crx])
     odt = y.dtype
-    return (
+    out = (
         yp[LPAD : LPAD + H, LPAD:].to(odt),
         cps[0][LPAD : LPAD + Hc, LPAD:].to(odt),
         cps[1][LPAD : LPAD + Hc, LPAD:].to(odt),
     )
+    if halo is None:
+        return out
+    return out, tuple(p[:LPAD, LPAD:].to(odt) for p in (yp, *cps))

@@ -8,9 +8,11 @@ height ch_h (8 or 16), bd_scale = 1 << (bd - 8) and mx = (1 << bd) - 1. The
 planes are uint8 at 8 bits and int16 above (the kernels read the same bits
 as uint16). `deblock_planes` is the 8-bit 4:4:4 counterpart: Y, Cb and Cr
 through the luma filter (chromaStyleFilteringFlag = 0), each plane with its
-own thresholds, in one launch of the luma kernel. A CUDA tensor goes to the
-hand-written kernels and nothing else; a CPU tensor takes the plain
-version, because the kernels do not run on the CPU.
+own thresholds, in one launch of the luma kernel. The luma and chroma
+wrappers and deblock_frame take an optional `halo`, the filtered rows above
+MB row 0 (row-band sharding, dist/), as the plain version does. A CUDA
+tensor goes to the hand-written kernels and nothing else; a CPU tensor
+takes the plain version, because the kernels do not run on the CPU.
 """
 
 from __future__ import annotations
@@ -37,9 +39,9 @@ def _load():
     if _lib is None:
         lib = _build.load("deblock")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.deblock_luma.argtypes = [vp] * 9 + [ci] * 6 + [vp, vp]
+        lib.deblock_luma.argtypes = [vp] * 10 + [ci] * 6 + [vp, vp]
         lib.deblock_luma.restype = ci
-        lib.deblock_chroma.argtypes = [vp] * 10 + [ci] * 6 + [vp, vp]
+        lib.deblock_chroma.argtypes = [vp] * 12 + [ci] * 6 + [vp, vp]
         lib.deblock_chroma.restype = ci
         _lib = lib
     return _lib
@@ -74,21 +76,25 @@ def _check_plane(t: torch.Tensor, shape, dt: torch.dtype, line: int, name: str, 
 
 
 def deblock_luma(y: torch.Tensor, prep: dict, mb_h: int, mb_w: int, bd_scale: int = 1,
-                 mx: int = 255) -> None:
+                 mx: int = 255, halo: torch.Tensor | None = None) -> None:
     """Filter luma plane y [H, W] in place, or the P planes y [P, H, W] that
     share prep's bS grids, each with its own indexA / indexB grid (prep's
     ia_* / ib_* then [P, H4, W4]; 4:4:4's Y, Cb and Cr): uint8 at 8 bits,
     int16 above (one launch: a persistent row wavefront over every plane's
     rows; sample rows are read and written 16 samples at a time, so y must
-    start on a 16-byte boundary at uint8 and a 32-byte one at int16). A
-    hand-off between rows that stalls for seconds traps in the kernel
-    (csrc/wavefront.cuh); a trap is a sticky CUDA error, so every later CUDA
-    call of the process fails."""
+    start on a 16-byte boundary at uint8 and a 32-byte one at int16).
+    halo: the 4 filtered rows above MB row 0, [4, W] ([P, 4, W]) of y's
+    dtype and alignment, filtered in place with MB row 0's top edges; None
+    leaves those edges alone. A hand-off between rows that stalls for
+    seconds traps in the kernel (csrc/wavefront.cuh); a trap is a sticky
+    CUDA error, so every later CUDA call of the process fails."""
     dt, nb = _sample_format(bd_scale, mx)
     H4, W4 = 4 * mb_h, 4 * mb_w
     planes = 1 if y.dim() == 2 else y.shape[0]
     lead = () if y.dim() == 2 else (planes,)
     _check_plane(y, lead + (16 * mb_h, 16 * mb_w), dt, 16, "y", "luma")
+    if halo is not None:
+        _check_plane(halo, lead + (4, 16 * mb_w), dt, 16, "halo", "luma")
     for n in ("bs_v", "bs_h"):
         _build.check_tensor(prep[n], (H4, W4), torch.int32, n)
     for n in ("ia_v", "ib_v", "ia_h", "ib_h"):
@@ -98,26 +104,36 @@ def deblock_luma(y: torch.Tensor, prep: dict, mb_h: int, mb_w: int, bd_scale: in
     # that concurrent calls never share it; the C entry zeroes it on the
     # stream
     sync = torch.empty(1 + planes * mb_h, dtype=torch.int32, device=y.device)
-    _build.launch("deblock_luma", _load().deblock_luma, y.data_ptr(),
+    name = "deblock_luma" if halo is None else "deblock_luma_halo"
+    _build.launch(name, _load().deblock_luma, y.data_ptr(),
                   *(prep[n].data_ptr() for n in names), _tables(y.device).data_ptr(),
-                  sync.data_ptr(), planes, mb_h, mb_w, nb, bd_scale, mx,
+                  _build.ptr(halo), sync.data_ptr(), planes, mb_h, mb_w, nb, bd_scale, mx,
                   torch.cuda.current_stream(y.device).cuda_stream)
 
 
 def deblock_chroma(cb: torch.Tensor, cr: torch.Tensor, prep: dict, mb_h: int,
-                   mb_w: int, ch_h: int = 8, bd_scale: int = 1, mx: int = 255) -> None:
+                   mb_w: int, ch_h: int = 8, bd_scale: int = 1, mx: int = 255,
+                   halo=None) -> None:
     """Filter chroma planes cb/cr [mb_h * ch_h, Wc] in place (ch_h 8 for
     4:2:0, 16 for 4:2:2, which reads prep's bs_hc; uint8 at 8 bits, int16
     above; one launch: a persistent row wavefront; its sample rows are read
     and written 8 samples at a time, so cb and cr must start on an 8-byte
-    boundary at uint8 and a 16-byte one at int16). A hand-off between rows
-    that stalls for seconds traps in the kernel (csrc/wavefront.cuh); a trap
-    is a sticky CUDA error, so every later CUDA call of the process fails."""
+    boundary at uint8 and a 16-byte one at int16). halo: (hcb, hcr), the 4
+    filtered rows above MB row 0 of each, [4, Wc], filtered in place with
+    MB row 0's top edges; None leaves those edges alone. A hand-off between
+    rows that stalls for seconds traps in the kernel (csrc/wavefront.cuh); a
+    trap is a sticky CUDA error, so every later CUDA call of the process
+    fails."""
     dt, nb = _sample_format(bd_scale, mx)
     if ch_h not in (8, 16):
         raise ValueError(f"deblock: chroma MB height {ch_h} is not 8 (4:2:0) or 16 (4:2:2)")
     for t, n in ((cb, "cb"), (cr, "cr")):
         _check_plane(t, (ch_h * mb_h, 8 * mb_w), dt, 8, n, "chroma")
+    name = "deblock_chroma" if halo is None else "deblock_chroma_halo"
+    halo = (None, None) if halo is None else halo
+    for t, n in zip(halo, ("halo_cb", "halo_cr")):
+        if t is not None:
+            _check_plane(t, (4, 8 * mb_w), dt, 8, n, "chroma")
     bs_hc = "bs_hc" if ch_h == 16 else "bs_h"
     for n in ("bs_v", bs_hc):
         _build.check_tensor(prep[n], (4 * mb_h, 4 * mb_w), torch.int32, n)
@@ -125,26 +141,31 @@ def deblock_chroma(cb: torch.Tensor, cr: torch.Tensor, prep: dict, mb_h: int,
     for n in names:
         _build.check_tensor(prep[n], (2, 4 * mb_h, 4 * mb_w), torch.int32, n)
     sync = torch.empty(mb_h + 1, dtype=torch.int32, device=cb.device)
-    _build.launch("deblock_chroma", _load().deblock_chroma, cb.data_ptr(), cr.data_ptr(),
+    _build.launch(name, _load().deblock_chroma, cb.data_ptr(), cr.data_ptr(),
                   prep["bs_v"].data_ptr(), prep[bs_hc].data_ptr(),
                   *(prep[n].data_ptr() for n in names), _tables(cb.device).data_ptr(),
-                  sync.data_ptr(), mb_h, mb_w, ch_h, nb, bd_scale, mx,
-                  torch.cuda.current_stream(cb.device).cuda_stream)
+                  _build.ptr(halo[0]), _build.ptr(halo[1]), sync.data_ptr(), mb_h, mb_w, ch_h,
+                  nb, bd_scale, mx, torch.cuda.current_stream(cb.device).cuda_stream)
 
 
 def deblock_frame(y, cb, cr, prep: dict, mb_h: int, mb_w: int, ch_h: int = 8,
-                  bd_scale: int = 1, mx: int = 255):
+                  bd_scale: int = 1, mx: int = 255, halo=None):
     """Drop-in for kernels.deblock.deblock_frame: returns new filtered
-    (y, cb, cr) in the sample dtype of mx (uint8, or int16 above 8 bits)."""
+    (y, cb, cr) in the sample dtype of mx (uint8, or int16 above 8 bits);
+    with halo (hy [4, W], hcb [4, Wc], hcr [4, Wc]), ((y, cb, cr), halo')
+    as the plain version returns them."""
     if not y.is_cuda:
-        return deblock_frame_plain(y, cb, cr, prep, mb_h, mb_w, ch_h, bd_scale, mx)
+        return deblock_frame_plain(y, cb, cr, prep, mb_h, mb_w, ch_h, bd_scale, mx, halo)
     dt = sample_dtype(mx)
     y = y.to(dt, copy=True).contiguous()
     cb = cb.to(dt, copy=True).contiguous()
     cr = cr.to(dt, copy=True).contiguous()
-    deblock_luma(y, prep, mb_h, mb_w, bd_scale, mx)
-    deblock_chroma(cb, cr, prep, mb_h, mb_w, ch_h, bd_scale, mx)
-    return y, cb, cr
+    if halo is not None:
+        halo = tuple(h.to(dt, copy=True).contiguous() for h in halo)
+    deblock_luma(y, prep, mb_h, mb_w, bd_scale, mx, None if halo is None else halo[0])
+    deblock_chroma(cb, cr, prep, mb_h, mb_w, ch_h, bd_scale, mx,
+                   None if halo is None else halo[1:])
+    return (y, cb, cr) if halo is None else ((y, cb, cr), halo)
 
 
 # each luma threshold grid of a prep -> the chroma grid [2, H4, W4] that

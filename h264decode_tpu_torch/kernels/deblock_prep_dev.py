@@ -169,3 +169,22 @@ def deblock_prep_device(
         prep[f"ca_{direction}"] = torch.stack(ca).to(torch.int32).contiguous()
         prep[f"cb_{direction}"] = torch.stack(cbt).to(torch.int32).contiguous()
     return prep
+
+
+def expand_slot_mv(slot_parts, mv_parts, is_intra, mb_h: int, mb_w: int):
+    """Expand the compact per-MB motion arrays to per-cell grids (JAX:
+    kernels/deblock_prep_dev.py:173): slot_parts [n, 2, 4] -> slot [2, H4, W4]
+    int32 (intra cells forced to -1), mv_parts [n, 2, 16, 2] -> mv
+    [2, H4, W4, 2] int32. The row-band sharded step (dist/sharded.py) ships
+    the compact form and expands it band by band."""
+    intra_cell = _mb_to_cells(is_intra, mb_h, mb_w)
+    sp = slot_parts.to(torch.int32)
+    mp = mv_parts.to(torch.int32)
+    slot = torch.stack([
+        torch.where(intra_cell, -1, _part_to_cells(sp[:, lst], mb_h, mb_w)) for lst in range(2)
+    ])
+    mv = torch.stack([
+        torch.stack([_blk_to_cells(mp[:, lst, :, c], mb_h, mb_w) for c in range(2)], dim=-1)
+        for lst in range(2)
+    ])
+    return slot.contiguous(), mv.contiguous()

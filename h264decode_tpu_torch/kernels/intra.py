@@ -346,6 +346,9 @@ def intra_wavefront(
     ch_h: int = 8,  # chroma MB height in samples: 8 (4:2:0) / 16 (4:2:2)
     mid: int = 128,  # DC fallback = 1 << (BitDepth - 1)
     mx: int = 255,  # Clip1 ceiling = (1 << BitDepth) - 1
+    top=None,  # optional (y_row [W], cb_row [Wc], cr_row [Wc]): the row above
+    #            MB row 0 (row-band sharding: the band above's unfiltered
+    #            bottom row); without it, that row reads as 0
 ):
     """Runs the anti-diagonal intra wavefront; returns new int32 (y, cb, cr)."""
     dev = y.device
@@ -360,6 +363,10 @@ def intra_wavefront(
     cbp[PAD : PAD + Hc, PAD : PAD + Wc] = cb
     crp = torch.zeros_like(cbp)
     crp[PAD : PAD + Hc, PAD : PAD + Wc] = cr
+    if top is not None:  # seeded as padding row PAD - 1, as in the JAX version
+        yp[PAD - 1, PAD : PAD + W] = top[0]
+        cbp[PAD - 1, PAD : PAD + Wc] = top[1]
+        crp[PAD - 1, PAD : PAD + Wc] = top[2]
     rpy = torch.zeros((H + 16, W), dtype=i32, device=dev)
     rpy[:H] = resid_y
     rpc = []

@@ -321,3 +321,71 @@ def test_planes_kernels_repeat_identically(cuda, mb_h, mb_w):
     torch.cuda.synchronize()
     for a, b in runs[1:]:
         assert torch.equal(a, runs[0][0]) and torch.equal(b, runs[0][1])
+
+
+# the halo inputs of row-band sharding (dist/sharded.py): the intra kernels'
+# row above MB row 0 and the deblock kernels' 4 rows above it, read back
+HALO_SHAPES = [(4, 4), (1, 7), (9, 11), (140, 3)]
+
+
+@pytest.mark.parametrize("cat,bd", FORMATS, ids=FORMAT_IDS)
+@pytest.mark.parametrize("mb_h,mb_w", HALO_SHAPES)
+def test_intra_kernels_with_top_row_match_plain(cuda, mb_h, mb_w, cat, bd):
+    args = _intra_args(cuda, 101 + mb_h + mb_w, mb_h, mb_w, True, cat, bd)
+    f = _fmt(cat, bd)
+    fmt = dict(ch_h=f["ch_h"], mid=f["mid"], mx=f["mx"])
+    rng = np.random.default_rng(mb_h * mb_w)
+    # an all-intra frame whose MB row 0 may read the row above: top, top-
+    # right (but the last MB) and top-left (but the first) available
+    avt, avtr, avtl = args[11:14]
+    avt[:mb_w] = True
+    avtr[: mb_w - 1] = True
+    avtl[1:mb_w] = True
+    top = [torch.as_tensor(rng.integers(0, f["mx"] + 1, n).astype(np.int32), device=cuda)
+           for n in (16 * mb_w, 8 * mb_w, 8 * mb_w)]
+    plain = t_intra.intra_wavefront(*args, mb_h, mb_w, **fmt, top=top)
+    before = _launch_counts(("intra_luma_halo", "intra_chroma_halo"))  # the halo launches
+    out = intra_cuda.intra_frame(*args, mb_h, mb_w, **fmt, top=top)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, out):
+        assert torch.equal(a, b)
+    _assert_launched(before)
+    assert not torch.equal(out[0], intra_cuda.intra_frame(*args, mb_h, mb_w, **fmt)[0])
+
+
+@pytest.mark.parametrize("cat,bd", FORMATS, ids=FORMAT_IDS)
+@pytest.mark.parametrize("mb_h,mb_w", HALO_SHAPES)
+def test_deblock_kernels_with_halo_match_plain(cuda, mb_h, mb_w, cat, bd):
+    y, cb, cr, prep = _deblock_args(cuda, 111 + mb_h + mb_w, mb_h, mb_w, "top", cat, bd)
+    f = _fmt(cat, bd)
+    fmt = dict(ch_h=f["ch_h"], bd_scale=f["bd_scale"], mx=f["mx"])
+    rng = np.random.default_rng(mb_h + 7 * mb_w)
+    for k in ("bs_h", "bs_hc") if cat == 2 else ("bs_h",):  # MB row 0's top edge: bS 1..4
+        prep[k] = prep[k].clone()
+        prep[k][0] = torch.as_tensor(rng.integers(1, 5, 4 * mb_w).astype(np.int32), device=cuda)
+    sh = bd - 8
+    halo = [torch.as_tensor(np.clip((128 << sh) + rng.integers(-12 << sh, (12 << sh) + 1, (4, w)),
+                                    0, f["mx"]), device=cuda).to(y.dtype)
+            for w in (16 * mb_w, 8 * mb_w, 8 * mb_w)]
+    (pl, ph) = t_db.deblock_frame(y, cb, cr, prep, mb_h, mb_w, **fmt, halo=halo)
+    before = _launch_counts(("deblock_luma_halo", "deblock_chroma_halo"))
+    out, oh = deblock_cuda.deblock_frame(y, cb, cr, prep, mb_h, mb_w, **fmt, halo=halo)
+    torch.cuda.synchronize()
+    for a, b in zip(pl + ph, out + oh):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+    assert not torch.equal(oh[0], halo[0])  # the boundary edge filtered the halo
+    _assert_launched(before)
+
+
+def test_halo_wrappers_refuse_host_rows(cuda):
+    """A CUDA plane never meets the plain version: halo rows left on the
+    host raise instead."""
+    args = _intra_args(cuda, 121, 2, 2)
+    top = [torch.zeros(n, dtype=torch.int32) for n in (32, 16, 16)]
+    with pytest.raises(ValueError, match="top"):
+        intra_cuda.intra_frame(*args, 2, 2, top=top)
+    y, cb, cr, prep = _deblock_args(cuda, 122, 2, 2)
+    halo = [torch.zeros((4, w), dtype=torch.uint8) for w in (32, 16, 16)]
+    with pytest.raises(ValueError, match="halo"):
+        deblock_cuda.deblock_frame(y, cb, cr, prep, 2, 2, halo=halo)

@@ -295,15 +295,24 @@ def test_gpu_decoder_needs_cuda_unless_asked_for_cpu(monkeypatch):
     GpuDecoder(device="cpu").close()
 
 
-def test_unported_formats_raise():
-    """Every stream format of the JAX package runs (8-bit 4:4:4 on the
-    frame program, High 4:4:4 above 8 bits on the host oracle, as in the
-    JAX package); the multi-device backends sharded and gop are not ported
-    yet and raise, naming the ROADMAP item."""
-    for backend in ("sharded", "gop"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_formats_raise(monkeypatch):
+    """Every stream format and every backend of the JAX package is ported:
+    the multi-device backends sharded and gop no longer raise
+    NotImplementedError. Like the gpu backend, their mesh takes CUDA
+    devices unless --device cpu asks for the CPU, so without a card they
+    raise for want of one."""
+    from h264decode_tpu_torch.cli import main as cli_mod
+    from h264decode_tpu_torch.dist.decoder import ShardedDecoder
+    from h264decode_tpu_torch.dist.gop import GopParallelDecoder
+
+    assert not hasattr(cli_mod, "_NOT_PORTED")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for backend, cls in (("sharded", ShardedDecoder), ("gop", GopParallelDecoder)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             cli_main(["decode", os.path.join(DATA, "smoke_cif_high.h264"), "unused.y4m",
                       "--backend", backend])
+        dec = cli_mod._make_decoder(backend, True, "cpu", mesh="1x2")
+        assert isinstance(dec, cls) and dec.mesh.shape == {"gop": 1, "row": 2}
 
 
 def test_serve_once_on_cpu_matches_libavcodec(tmp_path, capsys):
@@ -360,6 +369,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
+    dist = {os.path.basename(f) for f in files if os.path.dirname(f).endswith("dist")}
+    assert {"mesh.py", "sharded.py", "decoder.py", "gop.py", "multihost.py"} <= dist
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

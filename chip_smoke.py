@@ -40,8 +40,12 @@ every phase runs, and step 1 always does:
    CIF High (Intra8x8, weighted prediction, 4 slices), 1080p High 4:2:2
    10-bit (I/P/B, 8x8 transform), CIF High 10 (weighted prediction, 4
    slices), CIF monochrome, 1080p High 4:4:4 Predictive 8-bit (I/P/B, 8x8
-   transform) and CIF High 4:4:4 (the CIF High options and the JVT
-   scaling lists).
+   transform), CIF High 4:4:4 (the CIF High options and the JVT scaling
+   lists) and 1080p High "hard" (bench.py's BENCH_CONTENT=hard content
+   and recipe: QP 24, 4 slices, partitions=all, ref=3), traced too. Then
+   `python -m h264decode_tpu_torch bench` with BENCH_CONTENT=hard, whose
+   line must name 1080p_main_cabac_fps_per_chip_hard (it checks every
+   frame against the committed MD5s itself).
 4. `python -m h264decode_tpu_torch serve --port 0 --once` as a subprocess
    on the card, fed the 1080p 4:4:4 stream over TCP: its Y4M must match
    the committed MD5s; prints the wall time from connecting to its exit.
@@ -58,6 +62,17 @@ every phase runs, and step 1 always does:
    launches exactly where bands pass rows, one device kernel per call),
    frames/s beside GpuDecoder's on the same stream. Then
    `python -m h264decode_tpu_torch decode --backend sharded --mesh 1x1`.
+6. The stage-attribution probe (h264decode_tpu_torch/tools/perf_probe.py)
+   on the 1080p Main, hard, High 4:2:2 10-bit and High 4:4:4 streams: every
+   frame replayed on its own references through the nested prefixes of
+   frame_step, each prefix captured in a CUDA graph (a capture that fails
+   raises), the `full` prefix bit-exact against the decoder's packed frame,
+   eager and replayed. The CUDA wrappers' counters, zeroed before each
+   eager call, must show the format's intra kernels in `recon` of a frame
+   with intra MBs and its deblocking kernels in `deblock` of a deblocked
+   frame, one device kernel per call. Logs each stream's stage table
+   (host ms, graph-replay device ms and device activities per frame, over
+   I and inter frames) and the phase's time.
 
 The line before the last is the kernel table as JSON (with the main-path,
 serve and dist results of the phases that ran); the last line is
@@ -101,7 +116,15 @@ STREAMS = (("smoke_1080p_main_cabac.h264", "", True),
            ("smoke_cif_high10.h264", None, False),
            ("smoke_cif_gray.h264", None, False),
            ("smoke_1080p_high444.h264", "_444", True),
-           ("smoke_cif_high444.h264", None, False))
+           ("smoke_cif_high444.h264", None, False),
+           ("smoke_1080p_high_hard.h264", None, True))
+# the stream `bench` decodes with BENCH_CONTENT=hard, and its metric
+HARD_STREAM = "smoke_1080p_high_hard.h264"
+HARD_METRIC = "1080p_main_cabac_fps_per_chip_hard"
+# the probe phase's streams and the timed graph replays of each prefix
+PROBE_STREAMS = ("smoke_1080p_main_cabac.h264", HARD_STREAM, "smoke_1080p_high422_10.h264",
+                 "smoke_1080p_high444.h264")
+PROBE_REPLAYS = 5
 # the stream the serve phase sends over TCP
 SERVE_STREAM = "smoke_1080p_high444.h264"
 # the dist phase: one band of a 1x4 mesh at 1080p for the halo kernel rows
@@ -120,7 +143,7 @@ DIST_RUNS = (
 )
 # the run whose launches fill the kernel table's *_halo rows
 HALO_RUN = "sharded 1x4 halo"
-PHASES = ("kernels", "main", "serve", "dist")
+PHASES = ("kernels", "main", "serve", "dist", "probe")
 
 
 def log(msg: str):
@@ -736,6 +759,28 @@ def main_path(dev, name: str, want: dict, traced: bool = True) -> dict:
     return dict(launches=launches, kernels=kernels, fps=fps, frames=len(frames))
 
 
+def bench_hard() -> dict:
+    """`python -m h264decode_tpu_torch bench` with BENCH_CONTENT=hard on the
+    card: the committed hard stream, every frame checked against its MD5s by
+    the bench itself; returns its JSON line."""
+    env = dict(os.environ, BENCH_CONTENT="hard", BENCH_SIZE="1080p", BENCH_FRAMES="8")
+    env.pop("BENCH_MESH", None)
+    res = subprocess.run([sys.executable, "-m", "h264decode_tpu_torch", "bench"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"bench (BENCH_CONTENT=hard) failed:\n{res.stdout}\n{res.stderr}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines[-1]) if lines else {}
+    if len(lines) != 1 or rec.get("metric") != HARD_METRIC:
+        raise RuntimeError(f"bench (BENCH_CONTENT=hard): expected one {HARD_METRIC} line, got "
+                           f"{res.stdout!r}")
+    log(f"bench BENCH_CONTENT=hard: {lines[0]}")
+    for line in res.stderr.splitlines():
+        if line.startswith("#"):
+            log(f"bench BENCH_CONTENT=hard {line}")
+    return rec
+
+
 def serve_phase(name: str, want: dict) -> float:
     """`python -m h264decode_tpu_torch serve --port 0 --once` on the card,
     fed the committed stream over one TCP connection: its Y4M must match
@@ -916,6 +961,62 @@ def dist_phase(dev, want: dict, kernels: dict) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 6: stage attribution of the frame program
+# ---------------------------------------------------------------------------
+
+
+def probe_launches(name: str, rec: dict, cat: int) -> dict:
+    """Hold the probe's per-prefix wrapper counters (zeroed before each
+    eager call): `recon` of a frame with intra MBs launched the format's
+    intra kernels and `deblock` of a deblocked frame its deblocking kernels,
+    each once and as one device kernel; no prefix launched a kernel of
+    another format. Returns {prefix: frames checked}."""
+    intra = ("intra_luma",) if cat == 3 else ("intra_luma", "intra_chroma")
+    deblock = ("deblock_luma",) if cat == 3 else ("deblock_luma", "deblock_chroma")
+    checked = {"recon": 0, "deblock": 0}
+    for row in rec["rows"]:
+        in_recon = intra if row["has_intra"] else ()
+        in_deblock = in_recon + (deblock if row["deblocked"] else ())
+        for p, want in (("recon", in_recon), ("deblock", in_deblock)):
+            got = row["prefixes"][p]
+            expect = {k: 1 for k in want}
+            if got["launches"] != expect or got["device_kernels"] != expect:
+                raise RuntimeError(
+                    f"{name} frame {row['frame']} prefix {p}: wrapper calls "
+                    f"{got['launches']}, device kernels {got['device_kernels']}; "
+                    f"expected {expect} for each")
+            checked[p] += bool(want)
+    if not checked["recon"] or not checked["deblock"]:
+        raise RuntimeError(f"{name}: no frame ran the intra or deblocking kernels: {checked}")
+    return checked
+
+
+def probe_phase(dev) -> list:
+    """The stage-attribution probe on PROBE_STREAMS (each prefix of every
+    frame captured in a CUDA graph and replayed PROBE_REPLAYS times; `full`
+    bit-exact, eager and replayed, or the probe raises); the wrappers'
+    counters held per prefix. Writes each stream's JSON record to
+    chiprun_out/probe_<stream>.json and returns the per-frame stage sums."""
+    from h264decode_tpu_torch.tools import perf_probe
+
+    out = []
+    for name in PROBE_STREAMS:
+        t0 = time.time()
+        with open(os.path.join(DATA, name), "rb") as f:
+            bs = f.read()
+        rec = perf_probe.probe_stream(bs, name, dev, replays=PROBE_REPLAYS)
+        checked = probe_launches(name, rec, rec["format"]["cat"])
+        with open(os.path.join(OUT, "probe_" + name.replace(".h264", ".json")), "w") as f:
+            json.dump(rec, f)
+        log(perf_probe.table(rec))
+        log(f"{name}: probe {time.time() - t0:.1f} s; every full replay bit-exact (eager and "
+            f"graph); every prefix captured; wrapper launches held in {checked} frames")
+        out.append({"stream": name, "frames": rec["frames"], "seconds": rec["seconds"],
+                    "ring_snapshot_bytes": rec["ring_snapshot_bytes"], "sums": rec["sums"]})
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -977,6 +1078,7 @@ def main(argv=None) -> int:
                 row["inner_launches_per_call"] = mp["kernels"][k] / mp["launches"][k]
         table["main_path"] = [{"stream": k, "frames_per_s": v["fps"], "frames": v["frames"]}
                               for k, v in paths.items()]
+        table["bench_hard"] = bench_hard()
         log(f"main path done at {time.time() - t0:.1f} s")
     if "serve" in phases:
         table["serve"] = {"stream": SERVE_STREAM,
@@ -986,6 +1088,10 @@ def main(argv=None) -> int:
         kernels.update(halo_phase(dev))
         table["dist"] = dist_phase(dev, want, kernels)
         log(f"dist phase {time.time() - t_dist:.1f} s")
+    if "probe" in phases:
+        t_probe = time.time()
+        table["probe"] = probe_phase(dev)
+        log(f"probe phase {time.time() - t_probe:.1f} s")
     log(f"setup+run {time.time() - t0:.1f} s")
     log(json.dumps({"kernels": list(kernels.values()), **table}))
     print(json.dumps({"ok": True, "device": {

@@ -16,16 +16,22 @@ target of BASELINE.json.
 Configuration via the environment, as bench.py:
   BENCH_SIZE    1080p (default) | 720p | qcif
   BENCH_FRAMES  frames of the stream (default 8; 16 with BENCH_MESH)
+  BENCH_CONTENT hard: bench.py's high-motion textured content at QP 24,
+                High, 4 slices, ref=3, partitions=all, preset medium
+                (data/make_smoke_streams.frames_1080p_hard, encode_hard);
+                the per-chip metric takes the suffix _hard, as in bench.py
   BENCH_MESH    GxR: GopParallelDecoder over a G x R mesh (dist/), on a
                 stream with an IDR every 4 frames; CUDA meshes take the
                 visible devices, a CPU mesh repeats the CPU
 
-The card's machine has no libx264, so the 1080p streams the default
-settings need are committed (data/smoke_1080p_main_cabac.h264, 8 frames,
-and data/smoke_1080p_main_gop4.h264, 16 frames, IDR every 4) and held to
-their committed MD5s (data/smoke_md5.json). Any other size or frame count
-is encoded here with x264 (golden/lavc.py; bench.py's default content:
-data/make_smoke_streams.frames_1080p) and held to libavcodec's decode.
+The card's machine has no libx264, so the 1080p streams of 8 frames are
+committed (data/smoke_1080p_main_cabac.h264, and for BENCH_CONTENT=hard
+data/smoke_1080p_high_hard.h264), as is the default BENCH_MESH stream
+(data/smoke_1080p_main_gop4.h264, 16 frames, IDR every 4); each is held to
+its committed MD5s (data/smoke_md5.json). Any other size, frame count or
+mesh stream is encoded here with x264 (golden/lavc.py; bench.py's default
+content is data/make_smoke_streams.frames_1080p) and held to libavcodec's
+decode; without libx264 that raises, naming the stream.
 """
 
 from __future__ import annotations
@@ -42,9 +48,10 @@ import torch
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 SIZES = {"1080p": (1080, 1920), "720p": (720, 1280), "qcif": (144, 176)}
 MESH_GOP = 4  # frames per closed GOP of the BENCH_MESH stream
-# (size, frames, gop) -> committed stream
-COMMITTED = {("1080p", 8, None): "smoke_1080p_main_cabac.h264",
-             ("1080p", 16, MESH_GOP): "smoke_1080p_main_gop4.h264"}
+# (size, frames, gop, hard) -> committed stream
+COMMITTED = {("1080p", 8, None, False): "smoke_1080p_main_cabac.h264",
+             ("1080p", 8, None, True): "smoke_1080p_high_hard.h264",
+             ("1080p", 16, MESH_GOP, False): "smoke_1080p_main_gop4.h264"}
 
 
 def _md5s(planes) -> list[str]:
@@ -52,21 +59,38 @@ def _md5s(planes) -> list[str]:
             for p in planes]
 
 
+def hard() -> bool:
+    return os.environ.get("BENCH_CONTENT", "") == "hard"
+
+
 def stream(size: str, n_frames: int, gop: int | None) -> tuple[bytes, list]:
-    """(Annex-B bytes, per-frame per-plane MD5s that libavcodec decodes)."""
-    name = COMMITTED.get((size, n_frames, gop))
+    """(Annex-B bytes, per-frame per-plane MD5s that libavcodec decodes) of
+    the BENCH_CONTENT stream; gop: frames per closed GOP, or None for one
+    GOP of max(4, n_frames) frames as bench.py."""
+    name = COMMITTED.get((size, n_frames, gop, hard()))
     if name is not None:
         with open(os.path.join(DATA, name), "rb") as f:
             bs = f.read()
         with open(os.path.join(DATA, "smoke_md5.json")) as f:
             return bs, json.load(f)[name]["frames"]
-    from .data.make_smoke_streams import frames_1080p
+    from .data.make_smoke_streams import encode_hard, frames_1080p, frames_1080p_hard
     from .golden import lavc
 
     h, w = SIZES[size]
-    bs = lavc.encode_x264(frames_1080p(n_frames, h, w), qp=28, profile="main", cabac=True,
-                          bframes=2, preset="fast", gop=gop or max(4, n_frames),
-                          extra_x264=f"keyint={gop}:min-keyint={gop}:scenecut=0" if gop else "")
+    closed = f"keyint={gop}:min-keyint={gop}:scenecut=0" if gop else ""
+    gop = gop or max(4, n_frames)
+    try:
+        if hard():
+            bs = encode_hard(frames_1080p_hard(n_frames, h, w), gop, closed)
+        else:
+            bs = lavc.encode_x264(frames_1080p(n_frames, h, w), qp=28, profile="main",
+                                  cabac=True, bframes=2, preset="fast", gop=gop,
+                                  extra_x264=closed)
+    except RuntimeError as exc:
+        raise RuntimeError(
+            f"bench: no committed stream for the {'hard' if hard() else 'default'} content at "
+            f"{size}, {n_frames} frames, {gop} frames a GOP, and x264 cannot encode it "
+            f"here: {exc}") from exc
     return bs, [_md5s(g.planes()) for g in lavc.decode_annexb(bs)]
 
 
@@ -97,7 +121,7 @@ def bench_mesh(size: str, n_frames: int, spec: str, device: str) -> int:
 
     G, R = (int(v) for v in spec.lower().split("x"))
     n_dev = G * R if device == "cpu" else torch.cuda.device_count()
-    metric = f"{size}_main_cabac_fps_mesh{G}x{R}"
+    metric = f"{size}_main_cabac_fps_mesh{G}x{R}"  # no _hard suffix here, as bench.py
     if G * R > n_dev:
         print(json.dumps({"metric": metric, "value": 0.0, "unit": "frames/s",
                           "vs_baseline": 0.0, "error": f"needs {G * R} devices, have {n_dev}"}))
@@ -141,7 +165,7 @@ def main(device: str = "cuda") -> int:
     dl = time.perf_counter() - t1
     _check(frames, want, size)
     fps = len(frames) / dt
-    _line(f"{size}_main_cabac_fps_per_chip", fps)
+    _line(f"{size}_main_cabac_fps_per_chip" + ("_hard" if hard() else ""), fps)
     nbytes = sum(p.nbytes for fr in out for p in fr)
     print(f"# {len(frames)} frames decoded in {dt:.4f}s -> {fps:.4f} fps on {dev} "
           f"(bit-exact vs libavcodec); warm-up decode {warm_s:.2f}s; per-stage: "

@@ -35,6 +35,10 @@ MD5s merged into smoke_md5.json):
                                  frames with an IDR every 4 (keyint=4,
                                  min-keyint=4, scenecut=0): four closed
                                  GOPs for GOP-parallel decoding (dist/gop.py)
+  smoke_1080p_high_hard.h264     1920x1080 High CABAC: bench.py's
+                                 BENCH_CONTENT=hard content and recipe (QP
+                                 24, preset medium, 2 B-frames, 4 slices,
+                                 8x8dct, partitions=all, ref=3), 8 frames
   smoke_md5.json                 per stream: libavcodec's per-frame,
                                  per-plane MD5s (output order), its frame
                                  geometry, bit depth and chroma format.
@@ -80,6 +84,50 @@ def frames_1080p(n: int = 8, h: int = 1080, w: int = 1920, ch: int | None = None
         cr = np.full((ch, w // 2), 128, np.uint8)
         frames.append((y, cb, cr))
     return frames
+
+
+def frames_1080p_hard(n: int = 8, h: int = 1080, w: int = 1920):
+    """bench.py's BENCH_CONTENT=hard content: a textured plane (a warped
+    sine, a square-wave checker and noise) displaced by large,
+    direction-changing steps with fresh noise every frame, and Cb/Cr
+    sinusoids that drift, so skip and zero-MV shortcuts do not apply."""
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.clip(
+        128
+        + 70 * np.sin(xx / 5.0 + np.cos(yy / 7.0) * 3.0)
+        + 40 * np.sign(np.sin(xx / 37.0) * np.sin(yy / 29.0))
+        + rng.normal(0, 24, (h, w)),
+        0, 255,
+    ).astype(np.uint8)
+    frames = []
+    for i in range(n):
+        dx = int(18 * np.sin(i * 1.3)) + 7 * i
+        dy = int(11 * np.cos(i * 0.9)) + 3 * i
+        y = np.roll(np.roll(base, dx, axis=1), dy, axis=0)
+        y = np.clip(
+            y.astype(np.int16) + rng.normal(0, 6, (h, w)).astype(np.int16), 0, 255,
+        ).astype(np.uint8)
+        cb = np.clip(110 + 60 * np.sin(xx[: h // 2, : w // 2] / 9.0 + i * 0.7),
+                     0, 255).astype(np.uint8)
+        cr = np.clip(140 + 50 * np.cos(yy[: h // 2, : w // 2] / 11.0 - i * 0.5),
+                     0, 255).astype(np.uint8)
+        frames.append((y, cb, cr))
+    return frames
+
+
+# bench.py's BENCH_CONTENT=hard encoder settings (High, 4 slices, 8x8
+# transform, every partition size, 3 references; QP 24, preset medium)
+HARD_X264 = "slices=4:8x8dct=1:partitions=all:ref=3"
+
+
+def encode_hard(frames, gop: int, extra_x264: str = "") -> bytes:
+    """bench.py's hard recipe over `frames` (golden/lavc.py, libx264)."""
+    from ..golden import lavc
+
+    return lavc.encode_x264(frames, qp=24, profile="high", cabac=True, bframes=2,
+                            preset="medium", gop=gop,
+                            extra_x264=HARD_X264 + (":" + extra_x264 if extra_x264 else ""))
 
 
 def frames_cif(n: int = 8, h: int = 288, w: int = 352):
@@ -183,6 +231,8 @@ def main(names=None):
             frames_1080p(), qp=28, profile="main", cabac=True, bframes=2, preset="fast",
             gop=8, extra_x264="slices=4:no-deblock=1",
         ), 8, "420"),
+        "smoke_1080p_high_hard.h264": lambda: (encode_hard(frames_1080p_hard(), gop=8),
+                                               8, "420"),
         "smoke_1080p_main_gop4.h264": lambda: (lavc.encode_x264(
             frames_1080p(16), qp=28, profile="main", cabac=True, bframes=2, preset="fast",
             gop=4, extra_x264="keyint=4:min-keyint=4:scenecut=0",

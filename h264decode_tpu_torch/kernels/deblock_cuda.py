@@ -25,13 +25,13 @@ import torch
 from . import _build
 from .deblock import ALPHA_T, BETA_T, TC0_T
 from .deblock import deblock_frame as deblock_frame_plain
+from .device_tables import device_table
 from .mc import sample_dtype
 
 # alpha[52] | beta[52] | tc0[52][3], the layout csrc/deblock.cu reads
 TABLES = np.concatenate([ALPHA_T, BETA_T, TC0_T.reshape(-1)]).astype(np.int32)
 
 _lib = None
-_tabs: dict = {}
 
 
 def _load():
@@ -45,13 +45,6 @@ def _load():
         lib.deblock_chroma.restype = ci
         _lib = lib
     return _lib
-
-
-def _tables(dev: torch.device) -> torch.Tensor:
-    t = _tabs.get(dev)
-    if t is None:
-        t = _tabs[dev] = torch.as_tensor(TABLES, device=dev)
-    return t
 
 
 def _sample_format(bd_scale: int, mx: int) -> tuple[torch.dtype, int]:
@@ -105,8 +98,9 @@ def deblock_luma(y: torch.Tensor, prep: dict, mb_h: int, mb_w: int, bd_scale: in
     # stream
     sync = torch.empty(1 + planes * mb_h, dtype=torch.int32, device=y.device)
     name = "deblock_luma" if halo is None else "deblock_luma_halo"
+    tabs = device_table(TABLES, y.device)
     _build.launch(name, _load().deblock_luma, y.data_ptr(),
-                  *(prep[n].data_ptr() for n in names), _tables(y.device).data_ptr(),
+                  *(prep[n].data_ptr() for n in names), tabs.data_ptr(),
                   _build.ptr(halo), sync.data_ptr(), planes, mb_h, mb_w, nb, bd_scale, mx,
                   torch.cuda.current_stream(y.device).cuda_stream)
 
@@ -141,9 +135,10 @@ def deblock_chroma(cb: torch.Tensor, cr: torch.Tensor, prep: dict, mb_h: int,
     for n in names:
         _build.check_tensor(prep[n], (2, 4 * mb_h, 4 * mb_w), torch.int32, n)
     sync = torch.empty(mb_h + 1, dtype=torch.int32, device=cb.device)
+    tabs = device_table(TABLES, cb.device)
     _build.launch(name, _load().deblock_chroma, cb.data_ptr(), cr.data_ptr(),
                   prep["bs_v"].data_ptr(), prep[bs_hc].data_ptr(),
-                  *(prep[n].data_ptr() for n in names), _tables(cb.device).data_ptr(),
+                  *(prep[n].data_ptr() for n in names), tabs.data_ptr(),
                   _build.ptr(halo[0]), _build.ptr(halo[1]), sync.data_ptr(), mb_h, mb_w, ch_h,
                   nb, bd_scale, mx, torch.cuda.current_stream(cb.device).cuda_stream)
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .device_tables import device_table
 from .transform import CHROMA_QP_TAB
 
 
@@ -49,7 +50,7 @@ def _shift(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 
 def _cqp(qp: torch.Tensor, offset: int) -> torch.Tensor:
     qpi = torch.clamp(qp + offset, 0, 51)
-    return torch.as_tensor(CHROMA_QP_TAB, device=qp.device)[qpi.long()]
+    return device_table(CHROMA_QP_TAB, qp.device)[qpi.long()]
 
 
 def deblock_prep_device(

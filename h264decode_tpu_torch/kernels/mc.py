@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device_tables import device_table
+
 PAD = 8  # flat-extension margin; any value >= 4 is exact (see oracle clamping)
 
 
@@ -125,7 +127,7 @@ def luma_mc(
     plane_sz = Hp * Wp
     mv = mv.to(torch.int64)
     frac = ((mv[..., 0] & 3) + 4 * (mv[..., 1] & 3))  # [H4, W4]
-    t = torch.as_tensor(QPEL_TAB, device=dev)[frac]  # [H4, W4, 7]
+    t = device_table(QPEL_TAB, dev)[frac]  # [H4, W4, 7]
     t = t.repeat_interleave(4, dim=0)  # [H, W4, 7]
     R = ring.shape[0]
     base = torch.clamp(slot.to(torch.int64), 0, R - 1) * (4 * plane_sz)
@@ -211,7 +213,11 @@ def weighted_combine(p0, p1, use0, use1, w0, o0, w1, o1, log_wd, mx: int = 255):
     (lwd+1) + (o0+o1+1)>>1; uni the one-sided formula. Identity weights
     (w=32, o=0, logWD=5) make unweighted prediction fall out exactly.
     Weight arguments are int32 tensors or Python ints."""
-    as_t = lambda v: torch.as_tensor(v, dtype=torch.int32, device=p0.device)  # noqa: E731
+    def as_t(v):  # a Python int becomes a filled scalar: no host-to-device copy
+        if torch.is_tensor(v):
+            return v.to(device=p0.device, dtype=torch.int32)
+        return torch.full((), v, dtype=torch.int32, device=p0.device)
+
     w0, o0, w1, o1, log_wd = (as_t(v) for v in (w0, o0, w1, o1, log_wd))
     bi = use0 & use1
     p = torch.where(use0, p0, p1)

@@ -21,6 +21,7 @@ from ..pipeline.reference_recon import (
     _POS_CLASS_8x8,
 )
 from ..tensors.frame_tensors import CHROMA422_DC_SCAN, LUMA_BLK_XY, ZIGZAG_4x4, ZIGZAG_8x8
+from .device_tables import device_table
 
 # inverse permutations: raster position -> scan index
 _DEZIG4 = np.zeros(16, np.int64)
@@ -65,7 +66,7 @@ def level_scale_tables_8x8(weight_scale_zz) -> np.ndarray:
 
 
 def _idx(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, device=like.device)
+    return device_table(a, like.device)
 
 
 def dezigzag4(scan: torch.Tensor) -> torch.Tensor:

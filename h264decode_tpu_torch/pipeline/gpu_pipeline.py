@@ -129,20 +129,12 @@ def _rep(a, ry: int, rx: int):
     return a.repeat_interleave(ry, 0).repeat_interleave(rx, 1)
 
 
-def _base_planes(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
-                 need_s2: bool = True, cat: int = 1, bd: int = 8):
-    """Residual transforms + motion compensation (weighted, both lists
-    masked) + PCM placement: every data-parallel pixel stage. Returns
-    (base_y, base_cb, base_cr, ry, rcb, rcr) int32, where the base planes
-    hold the inter + PCM content (zeros at intra MBs) and r* the residuals.
-    cat: ChromaArrayType (2 = 4:2:2 with full-height chroma; 1 also for
-    monochrome); bd: the bit depth of luma and chroma."""
-    H, W = mb_h * 16, mb_w * 16
-    ch_h = 16 if cat == 2 else 8
-    Hc, Wc = mb_h * ch_h, mb_w * 8
+def _residual_planes(inp: dict, mb_h: int, mb_w: int, has_l8: bool, cat: int = 1,
+                     bd: int = 8):
+    """The residual transforms (dequant, inverse DCT) of every MB: int32
+    (ry, rcb, rcr). cat and bd as in _base_planes."""
     n = mb_h * mb_w
     dev = inp["qp"].device
-    mx = (1 << bd) - 1
     l8 = inp["luma8_ac"] if has_l8 else torch.zeros((n, 4, 64), dtype=_I32, device=dev)
     # QP'Y = QPY + QpBdOffsetY feeds luma dequant; chroma takes the raw QPY
     qp_y = inp["qp"] if bd == 8 else inp["qp"] + 6 * (bd - 8)
@@ -156,6 +148,23 @@ def _base_planes(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
         inp["chroma_dc"], inp["chroma_ac"], inp["qp"], inp["is_intra"], inp["ls4_c"],
         inp["qp_offsets"], mb_h, mb_w, bd=bd,
     )
+    return ry, rcb, rcr
+
+
+def _base_planes(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
+                 need_s2: bool = True, cat: int = 1, bd: int = 8):
+    """Residual transforms + motion compensation (weighted, both lists
+    masked) + PCM placement: every data-parallel pixel stage. Returns
+    (base_y, base_cb, base_cr, ry, rcb, rcr) int32, where the base planes
+    hold the inter + PCM content (zeros at intra MBs) and r* the residuals.
+    cat: ChromaArrayType (2 = 4:2:2 with full-height chroma; 1 also for
+    monochrome); bd: the bit depth of luma and chroma."""
+    H, W = mb_h * 16, mb_w * 16
+    ch_h = 16 if cat == 2 else 8
+    Hc, Wc = mb_h * ch_h, mb_w * 8
+    dev = inp["qp"].device
+    mx = (1 << bd) - 1
+    ry, rcb, rcr = _residual_planes(inp, mb_h, mb_w, has_l8, cat, bd)
     # both lists always evaluated, masked where unused
     slot, mv = inp["slot_cells"], inp["mv_cells"]
     use0_cell = slot[0] >= 0  # [H4, W4]
@@ -239,14 +248,10 @@ def _comp_qp_grids(inp: dict):
     return tr_k.chroma_qp(inp["qp"], cb_off), tr_k.chroma_qp(inp["qp"], cr_off)
 
 
-def _frame_core_444(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
-                    has_intra: bool = True, need_s2: bool = True) -> torch.Tensor:
-    """The 8-bit ChromaArrayType 3 pixel path before deblocking (spec
-    7.3.5.3.1, 8.3.4.5, 8.4.2.2): Cb and Cr run the luma processes, each
-    with its own QPc and scaling lists, luma quarter-pel MC from its own
-    half-pel stacks with the chroma weights, and luma intra (one launch over
-    the three planes). Returns uint8 [3, H, W] (Y, Cb, Cr)."""
-    H, W = mb_h * 16, mb_w * 16
+def _residual_planes_444(inp: dict, mb_h: int, mb_w: int, has_l8: bool) -> torch.Tensor:
+    """The 8-bit ChromaArrayType 3 residual transforms: Y, Cb and Cr each
+    through the luma process with its own QP'c and scaling lists. Returns
+    int32 [3, H, W]."""
     n = mb_h * mb_w
     dev = inp["qp"].device
     qp_cb, qp_cr = _comp_qp_grids(inp)
@@ -257,7 +262,7 @@ def _frame_core_444(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool
         return tr_k.luma_residual_plane(ac, dc, ac8, qp, inp["is_i16"], inp["is_t8"],
                                         inp["is_intra"], ls4, ls8, mb_h, mb_w)
 
-    resid = torch.stack([
+    return torch.stack([
         residual(inp["luma_ac"], inp["luma_dc"], inp["luma8_ac"] if has_l8 else zero8,
                  inp["qp"], inp["ls4_y"], inp["ls8_y"]),
         residual(inp["c444_ac"][:, 0], inp["c444_dc"][:, 0], c8[:, 0], qp_cb,
@@ -265,6 +270,18 @@ def _frame_core_444(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool
         residual(inp["c444_ac"][:, 1], inp["c444_dc"][:, 1], c8[:, 1], qp_cr,
                  inp["ls4_cr"], inp["ls8_cr"]),
     ])
+
+
+def _frame_core_444(inp: dict, mb_h: int, mb_w: int, has_l8: bool, has_pcm: bool,
+                    has_intra: bool = True, need_s2: bool = True) -> torch.Tensor:
+    """The 8-bit ChromaArrayType 3 pixel path before deblocking (spec
+    7.3.5.3.1, 8.3.4.5, 8.4.2.2): Cb and Cr run the luma processes, each
+    with its own QPc and scaling lists, luma quarter-pel MC from its own
+    half-pel stacks with the chroma weights, and luma intra (one launch over
+    the three planes). Returns uint8 [3, H, W] (Y, Cb, Cr)."""
+    H, W = mb_h * 16, mb_w * 16
+    dev = inp["qp"].device
+    resid = _residual_planes_444(inp, mb_h, mb_w, has_l8)
     slot, mv = inp["slot_cells"], inp["mv_cells"]
     use0_cell = slot[0] >= 0
     use1_cell = slot[1] >= 0

@@ -371,6 +371,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 40
     dist = {os.path.basename(f) for f in files if os.path.dirname(f).endswith("dist")}
     assert {"mesh.py", "sharded.py", "decoder.py", "gop.py", "multihost.py"} <= dist
+    assert os.path.join(PKG, "tools", "perf_probe.py") in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (h264decode_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--phases kernels,main,serve,dist]
+    python3 chip_smoke.py [--phases kernels,main,serve,dist,probe]
 
 Run from the repository root on a machine with a CUDA device. Phases (each
 raises on failure, and the script then exits non-zero); without --phases
@@ -31,12 +31,23 @@ every phase runs, and step 1 always does:
    format must have launched, each exactly one device kernel (a persistent
    row wavefront) per call, a 4:4:4 stream no chroma kernel at all, and the
    native entropy engine must have decoded) and through
-   `python -m h264decode_tpu_torch decode`. Every frame's per-plane MD5
-   must equal libavcodec's committed MD5s. Prints frames/s from the median
-   of three decodes (timing fence: torch.cuda.synchronize()) and the
-   per-stage timers, and for the 1080p streams and CIF High a
+   `python -m h264decode_tpu_torch decode`. GpuDecoder dispatches every
+   frame by replaying the frame program of its signature, a CUDA graph of
+   frame_step (pipeline/frame_program.py); the wrappers count their
+   launches when the program is captured, and every replay adds that count
+   again. The first decode of a stream captures the programs its geometry
+   lacks; the checked decode after it must capture none and replay one
+   program per frame. Every frame's per-plane MD5 must equal libavcodec's
+   committed MD5s. Prints frames/s from the median of three decodes (timing
+   fence: torch.cuda.synchronize()), the per-stage timers, the programs'
+   keys, captures, capture seconds, replays and dispatch seconds per frame,
+   and peak device memory (the capturing and the replaying decode, the
+   RingSet's graph pool, and the largest transient of an eager frame_step
+   call on the same frames); and for the 1080p streams and CIF High a
    torch.profiler trace of one more decode (device busy time, idle share,
-   kernels per frame, top device kernels). The streams: 1080p Main CABAC,
+   device activities and host launch calls per frame, top device kernels,
+   and the device records of each expected kernel, which must not be
+   zero). The streams: 1080p Main CABAC,
    CIF High (Intra8x8, weighted prediction, 4 slices), 1080p High 4:2:2
    10-bit (I/P/B, 8x8 transform), CIF High 10 (weighted prediction, 4
    slices), CIF monochrome, 1080p High 4:4:4 Predictive 8-bit (I/P/B, 8x8
@@ -48,7 +59,9 @@ every phase runs, and step 1 always does:
    frame against the committed MD5s itself).
 4. `python -m h264decode_tpu_torch serve --port 0 --once` as a subprocess
    on the card, fed the 1080p 4:4:4 stream over TCP: its Y4M must match
-   the committed MD5s; prints the wall time from connecting to its exit.
+   the committed MD5s; prints the wall time from connecting to its exit
+   and the connection's program keys, captures, replays, dispatch seconds
+   per frame and peak device memory.
 5. The multi-device path (dist/) on meshes that repeat cuda:0. First the
    four kernels with their halo inputs (intra's row above MB row 0,
    deblocking's 4 rows above it, filtered and returned) at one band of a
@@ -72,7 +85,9 @@ every phase runs, and step 1 always does:
    with intra MBs and its deblocking kernels in `deblock` of a deblocked
    frame, one device kernel per call. Logs each stream's stage table
    (host ms, graph-replay device ms and device activities per frame, over
-   I and inter frames) and the phase's time.
+   I and inter frames), the capturing decode's program keys, captures,
+   replays, dispatch seconds per frame and peak device memory (ring
+   snapshots included), and the phase's time.
 
 The line before the last is the kernel table as JSON (with the main-path,
 serve and dist results of the phases that ran); the last line is
@@ -213,6 +228,18 @@ def replay_check(name: str, g, reset, outs, wants, n: int = REPLAYS) -> None:
             if not torch.equal(o, w):
                 raise RuntimeError(f"{name}: graph replay {i} of {n} differs from the "
                                    f"plain version")
+
+
+def program_figures(counters: dict, timers: dict, frames: int) -> dict:
+    """The frame programs' figures of one decode from its DecodeMetrics
+    counters and timers (unrounded): distinct keys, graph captures and
+    their seconds (the warm call and the capture), replays, and the
+    dispatch timer (upload, slot write and replay) per frame."""
+    return dict(keys=counters.get("program_keys", 0),
+                captures=counters.get("graph_captures", 0),
+                capture_s=timers.get("graph_capture", 0.0),
+                replays=counters.get("graph_replays", 0),
+                dispatch_s_per_frame=timers.get("dispatch", 0.0) / max(frames, 1))
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -631,8 +658,9 @@ def y4m_md5s(path: str, want: dict) -> list[list[str]]:
 
 
 def decode_timed(dev, bs: bytes, metrics=None):
-    """Decode bs through a fresh GpuDecoder; returns (frames, wall seconds),
-    fenced by torch.cuda.synchronize() after every frame's output copy."""
+    """Decode bs through a fresh GpuDecoder; returns (frames, wall seconds,
+    the RingSet it used), fenced by torch.cuda.synchronize() after every
+    frame's output copy."""
     import torch
 
     from h264decode_tpu_torch.pipeline.gpu_pipeline import GpuDecoder
@@ -643,7 +671,7 @@ def decode_timed(dev, bs: bytes, metrics=None):
         for fr in frames:
             fr.sync()
         torch.cuda.synchronize()
-        return frames, time.perf_counter() - t0
+        return frames, time.perf_counter() - t0, dec._rings
 
 
 def busy_seconds(events) -> float:
@@ -661,21 +689,35 @@ def busy_seconds(events) -> float:
     return busy / 1e6
 
 
-def trace(dev, bs: bytes, name: str, wall_unprofiled: float) -> dict:
+def trace(dev, bs: bytes, name: str, wall_unprofiled: float, kernel_names) -> dict:
     """One decode under torch.profiler (CPU + CUDA): device busy time (the
     union of kernel and memcpy intervals), the idle share against the
     unprofiled wall time of the same stream (profiling slows the host, so
-    the profiled wall would inflate it), device kernels per frame and the
-    largest device kernels by time."""
+    the profiled wall would inflate it), device activities and host launch
+    calls (the CUDA runtime calls that put work on the device, a graph
+    launch counting one) per frame, the largest device kernels by time,
+    and the device records of each wrapper's kernel (<wrapper>_rows): the
+    profiler drops records now and then, so a count is only held to be
+    non-zero."""
     import torch
+
+    from h264decode_tpu_torch.tools.perf_probe import LAUNCH_CALLS
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        frames, wall = decode_timed(dev, bs)
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        frames, wall, _ = decode_timed(dev, bs)
+    events = prof.events()
+    dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev_events:
         raise RuntimeError(f"{name}: the profiler recorded no device activity")
+    calls = LAUNCH_CALLS | {"cudaGraphLaunch"}
+    host_calls = sum(e.device_type == torch.autograd.DeviceType.CPU and e.name in calls
+                     for e in events)
+    records = {k: sum(f"{k}_rows" in e.name for e in dev_events) for k in kernel_names}
+    unseen = [k for k, v in records.items() if v == 0]
+    if unseen:
+        raise RuntimeError(f"{name}: the trace has no device record of the kernels {unseen} "
+                           f"(records {records})")
     by_name: dict[str, list] = {}
     for e in dev_events:
         rec = by_name.setdefault(e.name[:100], [0.0, 0])
@@ -689,27 +731,80 @@ def trace(dev, bs: bytes, name: str, wall_unprofiled: float) -> dict:
         "device_idle_share": 1.0 - busy / wall_unprofiled,
         "device_idle_share_profiled": 1.0 - busy / wall,
         "device_events_per_frame": len(dev_events) / len(frames),
+        "host_launch_calls_per_frame": host_calls / len(frames),
+        "kernel_device_records": records,
         "device_ms_by_name": {k: {"ms": v[0] / 1e3, "count": v[1]} for k, v in top},
     }
+
+
+def eager_memory(dev, bs: bytes, name: str) -> int:
+    """The largest device memory one eager frame_step call allocates beyond
+    what is allocated before it, over the frames of bs (the frames' inputs
+    and rings kept by perf_probe.capture); every eager call's output must
+    equal the replayed program's."""
+    import torch
+
+    from h264decode_tpu_torch.pipeline import gpu_pipeline as gp
+    from h264decode_tpu_torch.tools import perf_probe
+
+    entries = perf_probe.capture(bs, dev)
+    peak = 0
+    for i, e in enumerate(entries):
+        ring_y, ring_c = e["ring_y"].clone(), e["ring_c"].clone()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = gp.frame_step(e["wire"], ring_y, ring_c, e["dyn"], e["mb_h"], e["mb_w"],
+                            e["flags"], e["slot"])
+        torch.cuda.synchronize(dev)
+        peak = max(peak, torch.cuda.max_memory_allocated(dev) - base)
+        if not torch.equal(out, e["packed"]):
+            raise RuntimeError(f"{name} frame {i}: eager frame_step differs from the replayed "
+                               f"frame program")
+        del out, ring_y, ring_c
+    return peak
+
+
+def pool_bytes(rs) -> int:
+    """Device bytes the caching allocator holds in the graph pool of a
+    RingSet (its programs' outputs and scratch)."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id") or ()) == tuple(rs.pool))
 
 
 def main_path(dev, name: str, want: dict, traced: bool = True) -> dict:
     """Decode a committed stream through GpuDecoder (launch counters set to
     0 just before, read just after) and the CLI; every kernel of the
     stream's format must have launched, one device kernel per call, and a
-    4:4:4 stream must have launched no chroma kernel."""
+    4:4:4 stream must have launched no chroma kernel. The first decode
+    captures the programs the stream's geometry lacks; the checked decode
+    must capture none and replay one program per frame."""
+    import torch
+
     from h264decode_tpu_torch.entropy import native
     from h264decode_tpu_torch.kernels import _build
     from h264decode_tpu_torch.utils.metrics import DecodeMetrics
 
     with open(os.path.join(DATA, name), "rb") as f:
         bs = f.read()
-    decode_timed(dev, bs)  # first-call costs (allocator, tables)
+
+    def peak_of(metrics):  # (decode, device bytes allocated at peak beyond the start)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        res = decode_timed(dev, bs, metrics)
+        return res, torch.cuda.max_memory_allocated(dev) - base
+
+    # first-call costs (allocator, tables) and the captures
+    cold = DecodeMetrics()
+    _, peak_cold = peak_of(cold)
     metrics = DecodeMetrics()
     _build.launches.clear()
     _build.device_kernels.clear()
     native.calls.clear()
-    frames, dt = decode_timed(dev, bs, metrics)
+    (frames, dt, rings), peak_warm = peak_of(metrics)
     kernel_names = LUMA_KERNELS if want["chroma"] == "444" else ROW_KERNELS
     launches = {k: _build.launches[k] for k in kernel_names}
     kernels = {k: _build.device_kernels[k] for k in kernel_names}
@@ -731,17 +826,27 @@ def main_path(dev, name: str, want: dict, traced: bool = True) -> dict:
                            f"(device kernels per call): {many}")
     if native._lib is None or native_slices == 0:
         raise RuntimeError(f"{name}: the native entropy engine did not decode")
+    progs = {"capturing decode": program_figures(cold.counters, cold.timers, len(frames)),
+             "checked decode": program_figures(metrics.counters, metrics.timers, len(frames))}
+    warm = progs["checked decode"]
+    if warm["captures"] or warm["replays"] != len(frames) or \
+            warm["keys"] != progs["capturing decode"]["keys"]:
+        raise RuntimeError(f"{name}: with the programs captured, a decode of {len(frames)} frames "
+                           f"gave {warm} (after {progs['capturing decode']})")
+    memory = {"peak_capturing_decode": peak_cold, "peak_replaying_decode": peak_warm,
+              "graph_pool": pool_bytes(rings), "eager_frame_step_peak": eager_memory(dev, bs, name)}
     # two more unprofiled decodes; frames/s is taken from the median wall
     walls = [dt] + [decode_timed(dev, bs)[1] for _ in range(2)]
     wall = statistics.median(walls)
     fps = len(frames) / wall
     log(f"{name}: {len(frames)} frames bit-exact vs libavcodec MD5s; walls {walls} s, "
-        f"median -> {fps} frames/s (fence: torch.cuda.synchronize); wrapper calls "
-        f"{launches}; device kernels they launched {kernels}; other kernels' calls "
-        f"{absent}; native entropy slices {native_slices}")
+        f"median -> {fps} frames/s (fence: torch.cuda.synchronize); wrapper calls (counted "
+        f"at capture, added per replay) {launches}; device kernels they launched {kernels}; "
+        f"other kernels' calls {absent}; native entropy slices {native_slices}")
+    log(f"{name}: frame programs {json.dumps(progs)}; device memory bytes {json.dumps(memory)}")
     log(f"{name}: stage timers {json.dumps(metrics.summary())}")
     if traced:
-        log(f"{name}: trace {json.dumps(trace(dev, bs, name, wall))}")
+        log(f"{name}: trace {json.dumps(trace(dev, bs, name, wall, kernel_names))}")
     # the CLI entry point, as a user would call it
     os.makedirs(OUT, exist_ok=True)
     y4m = os.path.join(OUT, name.replace(".h264", ".y4m"))
@@ -756,7 +861,8 @@ def main_path(dev, name: str, want: dict, traced: bool = True) -> dict:
         raise RuntimeError(f"CLI decode of {name}: frames differ from libavcodec")
     os.remove(y4m)
     log(f"{name}: CLI decode bit-exact ({res.stdout.splitlines()[0]})")
-    return dict(launches=launches, kernels=kernels, fps=fps, frames=len(frames))
+    return dict(launches=launches, kernels=kernels, fps=fps, frames=len(frames),
+                programs=progs, memory=memory)
 
 
 def bench_hard() -> dict:
@@ -781,11 +887,13 @@ def bench_hard() -> dict:
     return rec
 
 
-def serve_phase(name: str, want: dict) -> float:
+def serve_phase(name: str, want: dict) -> dict:
     """`python -m h264decode_tpu_torch serve --port 0 --once` on the card,
     fed the committed stream over one TCP connection: its Y4M must match
     the committed MD5s. Returns the wall seconds from connecting to the
-    server's exit (the server's startup, before it listens, excluded)."""
+    server's exit (the server's startup, before it listens, excluded), and
+    the connection's frame-program figures and peak device memory from the
+    line the server prints for it."""
     import select
     import socket
 
@@ -830,9 +938,20 @@ def serve_phase(name: str, want: dict) -> float:
     if y4m_md5s(y4m, want) != want["frames"]:
         raise RuntimeError(f"serve of {name}: frames differ from libavcodec")
     os.remove(y4m)
-    log(f"serve (port {port}, --once) of {name}: {len(want['frames'])} frames bit-exact vs "
-        f"libavcodec MD5s; {wall} s from connect to exit ({out.strip()})")
-    return wall
+    conn = [ln for ln in out.splitlines() if ln.startswith("[conn 0]")]
+    if len(conn) != 1:
+        raise RuntimeError(f"serve: expected one [conn 0] line, got {out!r}")
+    stats = json.loads(conn[0].split("; ", 1)[1])
+    frames = len(want["frames"])
+    progs = program_figures(stats["counters"], stats["timers"], frames)
+    if progs["replays"] != frames:
+        raise RuntimeError(f"serve of {name}: {progs['replays']} program replays for {frames} "
+                           f"frames")
+    log(f"serve (port {port}, --once) of {name}: {frames} frames bit-exact vs libavcodec MD5s; "
+        f"{wall} s from connect to exit; frame programs {json.dumps(progs)}; peak device "
+        f"memory {stats['peak_device_bytes']} bytes ({out.strip()})")
+    return {"stream": name, "wall_s": wall, "programs": progs,
+            "peak_device_bytes": stats["peak_device_bytes"]}
 
 
 # ---------------------------------------------------------------------------
@@ -998,22 +1117,34 @@ def probe_phase(dev) -> list:
     bit-exact, eager and replayed, or the probe raises); the wrappers'
     counters held per prefix. Writes each stream's JSON record to
     chiprun_out/probe_<stream>.json and returns the per-frame stage sums."""
+    import torch
+
     from h264decode_tpu_torch.tools import perf_probe
+    from h264decode_tpu_torch.utils.metrics import DecodeMetrics
 
     out = []
     for name in PROBE_STREAMS:
         t0 = time.time()
         with open(os.path.join(DATA, name), "rb") as f:
             bs = f.read()
-        rec = perf_probe.probe_stream(bs, name, dev, replays=PROBE_REPLAYS)
+        metrics = DecodeMetrics()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        rec = perf_probe.probe_stream(bs, name, dev, replays=PROBE_REPLAYS, metrics=metrics)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        progs = program_figures(metrics.counters, metrics.timers, rec["frames"])
         checked = probe_launches(name, rec, rec["format"]["cat"])
         with open(os.path.join(OUT, "probe_" + name.replace(".h264", ".json")), "w") as f:
             json.dump(rec, f)
         log(perf_probe.table(rec))
         log(f"{name}: probe {time.time() - t0:.1f} s; every full replay bit-exact (eager and "
-            f"graph); every prefix captured; wrapper launches held in {checked} frames")
+            f"graph); every prefix captured; wrapper launches held in {checked} frames; the "
+            f"capturing decode's frame programs {json.dumps(progs)}; peak device memory "
+            f"{peak} bytes (ring snapshots included)")
         out.append({"stream": name, "frames": rec["frames"], "seconds": rec["seconds"],
-                    "ring_snapshot_bytes": rec["ring_snapshot_bytes"], "sums": rec["sums"]})
+                    "ring_snapshot_bytes": rec["ring_snapshot_bytes"], "sums": rec["sums"],
+                    "programs": progs, "peak_device_bytes": peak})
     return out
 
 
@@ -1076,13 +1207,13 @@ def main(argv=None) -> int:
                 row["launches"] = mp["launches"][k]
                 row["launch_stream"] = name
                 row["inner_launches_per_call"] = mp["kernels"][k] / mp["launches"][k]
-        table["main_path"] = [{"stream": k, "frames_per_s": v["fps"], "frames": v["frames"]}
+        table["main_path"] = [{"stream": k, "frames_per_s": v["fps"], "frames": v["frames"],
+                               "programs": v["programs"], "memory_bytes": v["memory"]}
                               for k, v in paths.items()]
         table["bench_hard"] = bench_hard()
         log(f"main path done at {time.time() - t0:.1f} s")
     if "serve" in phases:
-        table["serve"] = {"stream": SERVE_STREAM,
-                          "wall_s": serve_phase(SERVE_STREAM, want[SERVE_STREAM])}
+        table["serve"] = serve_phase(SERVE_STREAM, want[SERVE_STREAM])
     if "dist" in phases:
         t_dist = time.time()
         kernels.update(halo_phase(dev))

@@ -170,7 +170,11 @@ def cmd_probe(args) -> int:
 def _serve_connection(conn: socket.socket, dec, path: str, idx: int) -> None:
     """Decode one connection's byte stream into the Y4M file `path`, frame
     by frame as the DPB outputs them (memory stays bounded for any stream
-    length); the socket and the decoder are closed when it ends."""
+    length); the socket and the decoder are closed when it ends. The line
+    it prints gives the decoder's counters and stage timers in seconds and,
+    on a CUDA device, the process's peak device memory in bytes."""
+    import json
+
     from ..io.writers import write_y4m
 
     def chunks():
@@ -185,7 +189,13 @@ def _serve_connection(conn: socket.socket, dec, path: str, idx: int) -> None:
     finally:
         conn.close()
         _close(dec)
-    print(f"[conn {idx}] {n} frames -> {path}", flush=True)
+    stats = {"counters": dict(dec.metrics.counters), "timers": dict(dec.metrics.timers)}
+    device = getattr(dec, "device", None)
+    if device is not None and device.type == "cuda":
+        import torch
+
+        stats["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    print(f"[conn {idx}] {n} frames -> {path}; {json.dumps(stats)}", flush=True)
 
 
 def cmd_serve(args) -> int:
@@ -193,7 +203,9 @@ def cmd_serve(args) -> int:
     connection gets a decoder of its own, made before the connection is
     accepted, so a missing CUDA device fails at startup. With --once the
     server handles one connection and returns when its output is written."""
-    dec = _make_decoder(args.backend, True, args.device)
+    from ..utils.metrics import DecodeMetrics
+
+    dec = _make_decoder(args.backend, True, args.device, DecodeMetrics())
     srv = socket.create_server((args.host, args.port))
     host, port = srv.getsockname()[:2]
     print(f"listening on {host}:{port}; writing to {args.out_dir}", flush=True)
@@ -207,7 +219,7 @@ def cmd_serve(args) -> int:
                 _serve_connection(*handler_args)
                 return 0
             threading.Thread(target=_serve_connection, args=handler_args, daemon=True).start()
-            dec = _make_decoder(args.backend, True, args.device)
+            dec = _make_decoder(args.backend, True, args.device, DecodeMetrics())
     except KeyboardInterrupt:
         return 0
     finally:

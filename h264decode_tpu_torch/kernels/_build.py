@@ -22,6 +22,7 @@ import subprocess
 import threading
 import time
 from collections import Counter
+from contextlib import contextmanager
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -41,6 +42,9 @@ launches: Counter = Counter()
 #: wavefront)
 device_kernels: Counter = Counter()
 _count_lock = threading.Lock()
+# a thread that captures a CUDA graph counts its wrappers' calls apart
+# (counted_apart): a captured launch runs only when the graph is replayed
+_capturing = threading.local()
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -118,15 +122,39 @@ def load(name: str) -> ctypes.CDLL:
 def launch(name: str, entry, *args) -> None:
     """Call the C entry point of wrapper `name` as entry(*args, &n), where
     it stores in n the number of device kernels it launched. Counts the call
-    in `launches` and n in `device_kernels`, then raises if the entry
-    returned a non-zero cudaError_t."""
+    in `launches` and n in `device_kernels` (inside counted_apart, in its
+    pair), then raises if the entry returned a non-zero cudaError_t."""
     n = ctypes.c_int(0)
     err = entry(*args, ctypes.addressof(n))
+    apart = getattr(_capturing, "counts", None)
+    calls, kernels = apart if apart is not None else (launches, device_kernels)
     with _count_lock:  # wrappers launch from several threads (dist/gop.py)
-        launches[name] += 1
-        device_kernels[name] += n.value
+        calls[name] += 1
+        kernels[name] += n.value
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def add_counts(calls: Counter, kernels: Counter) -> None:
+    """Add wrapper calls to `launches` and their device kernels to
+    `device_kernels` (a CUDA graph's replay adds what its capture counted)."""
+    with _count_lock:
+        launches.update(calls)
+        device_kernels.update(kernels)
+
+
+@contextmanager
+def counted_apart():
+    """Inside, this thread's wrapper calls are counted into the yielded
+    (calls, device kernels) pair of Counters and not into `launches` and
+    `device_kernels`: a CUDA graph capture records launches that run only
+    at its replays, each of which adds the pair (add_counts)."""
+    counts = (Counter(), Counter())
+    _capturing.counts = counts
+    try:
+        yield counts
+    finally:
+        _capturing.counts = None
 
 
 def ptr(t):

@@ -21,12 +21,15 @@ arithmetic on uint16), and the host sees uint16 planes. High-bit-depth
 4:4:4 and mixed luma/chroma depths decode on the host oracle.
 
 The host side (GpuDecoder) drives entropy decoding into FrameTensors,
-builds the narrow per-frame wire, uploads it through one pinned staging
-buffer, runs frame_step on a worker thread while the main thread
-entropy-decodes the next picture, and copies the packed plane back into
-pinned memory behind a CUDA event. Everything runs on the GPU unless the
-caller asks for device="cpu", where the kernel wrappers take their plain
-torch versions (the CPU tests do this).
+builds the narrow per-frame wire and, on a worker thread while the main
+thread entropy-decodes the next picture, hands it to the frame program of
+its signature (pipeline/frame_program.py: on a CUDA device frame_step
+captured once in a CUDA graph per JAX jit signature, its static wire
+buffer filled from one pinned staging buffer, the graph replayed), then
+copies the packed plane back into pinned memory behind a CUDA event.
+Everything runs on the GPU unless the caller asks for device="cpu", where
+the kernel wrappers take their plain torch versions and the programs call
+frame_step eagerly (the CPU tests do this).
 
 The DPB ring is updated in place (torch tensors are mutable; the JAX
 package re-feeds a functional ring).
@@ -42,7 +45,6 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import convert
 from ..kernels import mc as mc_k
 from ..kernels import transform as tr_k
 from ..kernels.deblock_cuda import deblock_frame, deblock_planes, prep_444
@@ -60,6 +62,7 @@ from ..tensors.frame_tensors import (
     FrameTensors,
 )
 from ..utils.metrics import DecodeMetrics
+from . import frame_program
 from .decoder import Decoder
 from .dpb import Picture
 
@@ -381,8 +384,20 @@ def _prepare_inp(wire: dict, dyn: dict, ring_y, ring_c, mb_h: int, mb_w: int,
     return inp
 
 
+def _put(ring: torch.Tensor, slot, value: torch.Tensor) -> None:
+    """ring[slot] = value. slot is an int or a 0-d int64 tensor on the
+    ring's device: the slot as data, as the JAX frame_step reads
+    wire["slot_idx"]. Indexing with a tensor would turn it into a Python
+    int (a host synchronisation, which a CUDA graph cannot capture);
+    index_copy_ reads it on the device."""
+    if isinstance(slot, int):
+        ring[slot] = value
+    else:
+        ring.index_copy_(0, slot.view(1), value.unsqueeze(0))
+
+
 def frame_step(wire: dict, ring_y: torch.Tensor, ring_c: torch.Tensor, dyn: dict,
-               mb_h: int, mb_w: int, flags: tuple, slot: int) -> torch.Tensor:
+               mb_h: int, mb_w: int, flags: tuple, slot) -> torch.Tensor:
     """The whole per-frame device program: reconstruct -> deblock ->
     half-pel planes into ring slot `slot` (in place) -> packed output.
 
@@ -392,24 +407,27 @@ def frame_step(wire: dict, ring_y: torch.Tensor, ring_c: torch.Tensor, dyn: dict
     W+2*PAD] {G, b, h, j} stacks; ring_c: [R, 2, Hc+2*PAD, Wc+2*PAD] padded
     Cb/Cr (Hc = H/2, or H for 4:2:2), or for 4:4:4 [R, 2, 4, H+2*PAD,
     W+2*PAD] Cb and Cr half-pel stacks, both in the sample dtype (uint8 at 8
-    bits, int16 above). Returns the packed [H + Hc, W] plane ([3H, W] for
-    4:4:4) in the sample dtype."""
+    bits, int16 above). slot: an int, or a 0-d int64 tensor on the rings'
+    device (what the frame programs of pipeline/frame_program.py pass, so
+    that one captured program serves every slot); wire["slot_idx"], which a
+    wire converted from the JAX package carries, is not read. Returns the
+    packed [H + Hc, W] plane ([3H, W] for 4:4:4) in the sample dtype."""
     has_l8, has_pcm, apply_db, sparse, has_intra, need_s2, cat, bd = flags
     inp = _prepare_inp(wire, dyn, ring_y, ring_c, mb_h, mb_w, flags)
     if cat == 3:
         planes = _frame_core_444(inp, mb_h, mb_w, has_l8, has_pcm, has_intra, need_s2)
         if apply_db:
             planes = _deblock_core_444(planes, inp, mb_h, mb_w)
-        ring_y[slot] = mc_k.half_pel_planes(planes[0])
-        ring_c[slot, 0] = mc_k.half_pel_planes(planes[1])
-        ring_c[slot, 1] = mc_k.half_pel_planes(planes[2])
+        _put(ring_y, slot, mc_k.half_pel_planes(planes[0]))
+        _put(ring_c[:, 0], slot, mc_k.half_pel_planes(planes[1]))
+        _put(ring_c[:, 1], slot, mc_k.half_pel_planes(planes[2]))
         return planes.reshape(3 * mb_h * 16, mb_w * 16)
     y, cb, cr = _frame_core(inp, mb_h, mb_w, has_l8, has_pcm, has_intra, need_s2, cat, bd)
     if apply_db:
         y, cb, cr = _deblock_core((y, cb, cr), inp, mb_h, mb_w, cat, bd)
-    ring_y[slot] = mc_k.half_pel_planes(y, (1 << bd) - 1)
-    ring_c[slot, 0] = mc_k.chroma_pad(cb)
-    ring_c[slot, 1] = mc_k.chroma_pad(cr)
+    _put(ring_y, slot, mc_k.half_pel_planes(y, (1 << bd) - 1))
+    _put(ring_c[:, 0], slot, mc_k.chroma_pad(cb))
+    _put(ring_c[:, 1], slot, mc_k.chroma_pad(cr))
     return torch.cat([y, torch.cat([cb, cr], dim=1)], dim=0)
 
 
@@ -647,7 +665,9 @@ def _implicit_w(p0: Picture, p1: Picture, cur_poc: int) -> tuple[int, int]:
 class GpuDecoder(Decoder):
     """Stream decoder whose pixel pipeline runs as one frame program per
     picture on a CUDA device, with device-resident DPB reference planes
-    and asynchronous packed-plane output.
+    and asynchronous packed-plane output. The programs and the rings come
+    from the process-wide cache of pipeline/frame_program.py, checked out
+    per ring geometry and returned at close().
 
     device: "cuda" (default; raises when no CUDA device exists) or "cpu",
     where the kernel wrappers run their plain torch versions. Pictures are
@@ -670,13 +690,12 @@ class GpuDecoder(Decoder):
                 )
             if self.device.index is None:
                 self.device = torch.device("cuda", torch.cuda.current_device())
-        self._ring = None  # (luma half-pel ring, chroma ring)
+        self._rings: frame_program.RingSet | None = None  # checked out
         self._ring_slots: dict[int, int] = {}  # pic uid -> ring slot
-        self._ring_geom = None
+        self._keys: set = set()  # the signatures of the frames decoded
         self._r_w = R_W_DEFAULT
         self._ls_key = None
         self._ls_dev = None
-        self._staging: deque = deque()  # (copy-done event, pinned buffer)
         # two-stage pipeline: the main thread runs the serial entropy
         # decode; this single worker runs host prep + device dispatch for
         # earlier pictures. Ring state, _ring_slots and _r_w are touched
@@ -686,8 +705,9 @@ class GpuDecoder(Decoder):
         self._recon_pending: deque[Future] = deque()
 
     def close(self):
-        """Finish pending work and stop the recon worker and the per-slice
-        entropy executor."""
+        """Finish pending work, stop the recon worker and the per-slice
+        entropy executor, and return the rings and their programs to the
+        cache."""
         try:
             self._drain_recon()
         finally:
@@ -698,6 +718,15 @@ class GpuDecoder(Decoder):
             if ex is not None:
                 ex.shutdown(wait=True)
                 self._slice_exec = None
+            if self._rings is not None:
+                frame_program.checkin(self._rings)
+                self._rings = None
+
+    @property
+    def _ring(self):
+        """(luma half-pel ring, chroma ring), or None before the first
+        picture that the frame program decodes."""
+        return None if self._rings is None else (self._rings.ring_y, self._rings.ring_c)
 
     def __enter__(self):
         return self
@@ -791,14 +820,16 @@ class GpuDecoder(Decoder):
         return over
 
     def _ensure_ring(self, sps: SPS) -> int:
+        """Check out the rings (and programs) of the stream's geometry; a
+        new geometry returns the set in use to the cache first."""
         geom = self._ring_geom_of(sps)
-        luma, chroma, dt = geom
-        if self._ring is None or self._ring_geom != geom:
-            self._ring = (torch.zeros(luma, dtype=dt, device=self.device),
-                          torch.zeros(chroma, dtype=dt, device=self.device))
+        if self._rings is None or self._rings.geom != geom:
+            if self._rings is not None:
+                frame_program.checkin(self._rings)
+            self._rings = frame_program.checkout(self.device, geom)
             self._ring_slots = {}
-            self._ring_geom = geom
-        return luma[0]
+            self._ls_key = None  # the tables of a set are its own
+        return geom[0][0]
 
     def _alloc_slot(self, live_uids: set, n_refs: int) -> int:
         """A free ring slot, evicting slots of no-longer-referenced uids."""
@@ -832,29 +863,11 @@ class GpuDecoder(Decoder):
                     mc_k.chroma_pad(dev(c))
             self._ring_slots[p.uid] = slot
 
-    def _upload(self, wire: dict) -> dict:
-        """One host->device copy of the whole wire through a pinned staging
-        buffer; the buffer is kept until its copy-done event has fired."""
-        total, _ = convert.wire_layout(wire)
-        total = max(total, 8)
-        if self.device.type != "cuda":
-            buf = np.zeros(total, np.uint8)
-            return convert.unpack_wire(torch.from_numpy(buf),
-                                       convert.pack_wire(wire, buf))
-        while self._staging and self._staging[0][0].query():
-            self._staging.popleft()
-        host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-        layout = convert.pack_wire(wire, host.numpy())
-        dev = host.to(self.device, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        self._staging.append((ev, host))
-        return convert.unpack_wire(dev, layout)
-
     def _dyn(self, sps, pps) -> dict:
-        """Scaling-list tables (per-(SPS, PPS) constants, uploaded once);
-        for 4:4:4 also the Cb and Cr luma-process lists, [intra, inter], with
-        the JAX package's indices (tpu_pipeline.py:1458-1475)."""
+        """Scaling-list tables (per-(SPS, PPS) constants, uploaded once per
+        content into the checked-out RingSet); for 4:4:4 also the Cb and Cr
+        luma-process lists, [intra, inter], with the JAX package's indices
+        (tpu_pipeline.py:1458-1475)."""
         key = (id(sps), id(pps))
         if self._ls_key != key:
             s4 = pps.effective_scaling_4x4(sps)
@@ -871,7 +884,7 @@ class GpuDecoder(Decoder):
                 tabs["ls4_cr"] = np.stack([l4(s4[2]), l4(s4[5])])
                 tabs["ls8_cb"] = np.stack([l8(s8[2]), l8(s8[3])])
                 tabs["ls8_cr"] = np.stack([l8(s8[4]), l8(s8[5])])
-            self._ls_dev = convert.dyn_to_torch(tabs, self.device)
+            self._ls_dev = self._rings.tables(tabs)
             self._ls_key = key
         dyn = dict(self._ls_dev)
         dyn["qp_offsets"] = (int(pps.chroma_qp_index_offset),
@@ -1093,7 +1106,6 @@ class GpuDecoder(Decoder):
             wire["nnz_bits"] = np.packbits((ft.luma_nnz > 0).reshape(-1))
         if m is not None:
             m.count("bytes_up", sum(v.nbytes for v in wire.values()))
-        buf = self._upload(wire)
         dyn = self._dyn(sps, pps)
         # typical P/B frames code zero intra MBs: skip the intra kernels
         has_intra = bool(kind.any())
@@ -1101,12 +1113,12 @@ class GpuDecoder(Decoder):
         need_s2 = bool(((ft.mv & 1) != 0).any())
         flags = (has_l8, has_pcm, self.apply_deblock, sparse, has_intra, need_s2,
                  sps.chroma_array_type if cf2 or cf3 else 1, bd)
-        ring_y, ring_c = self._ring
-        if m is not None:
-            with m.timer("dispatch"):
-                packed = frame_step(buf, ring_y, ring_c, dyn, mb_h, mb_w, flags, cur_slot)
-        else:
-            packed = frame_step(buf, ring_y, ring_c, dyn, mb_h, mb_w, flags, cur_slot)
+        key = frame_program.signature(wire, dyn, mb_h, mb_w, flags)
+        if key not in self._keys:
+            self._keys.add(key)
+            if m is not None:
+                m.count("program_keys")
+        packed = self._rings.dispatch(frame_step, key, wire, dyn, mb_h, mb_w, flags, cur_slot, m)
         if self.device.type == "cuda":
             # the copy starts now and overlaps later frames' work; the
             # first plane access waits for its event

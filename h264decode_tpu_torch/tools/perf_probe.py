@@ -4,12 +4,14 @@
         [--frames N] [--device cuda|cpu] [--replays N]
 
 Counterpart of the JAX package's tools/perf_probe.py. It decodes a stream
-with GpuDecoder while a wrapper around pipeline/gpu_pipeline.frame_step
-keeps, for every frame, the call's inputs (the wire, the per-(SPS, PPS)
-tables, geometry, flags, ring slot), copies of the DPB rings taken before
-the call and the packed frame it returned. Each frame is then replayed on
-its own references through nested prefixes of frame_step, each made of the
-functions frame_step itself runs:
+with GpuDecoder while a wrapper around the decoder's per-frame entry
+(pipeline/frame_program.RingSet.dispatch, which replays the frame's
+captured program on the card) keeps, for every frame, the call's inputs
+(the wire, the per-(SPS, PPS) tables, geometry, flags, ring slot), copies
+of the DPB rings taken before the call and the packed frame it returned.
+Each frame is then replayed on its own references through nested
+prefixes of frame_step, each made of the functions frame_step itself
+runs:
 
   prep          _prepare_inp: the wire unpacked and widened
   residual      + the residual transforms (_residual_planes, or
@@ -65,7 +67,9 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from .. import convert
 from ..kernels import _build
+from ..pipeline import frame_program
 from ..pipeline import gpu_pipeline as gp
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
@@ -83,32 +87,34 @@ STAGES = {
 METRICS = ("host_ms", "device_ms", "kernels")
 
 
-def capture(bs: bytes, device, max_frames: int | None = None) -> list[dict]:
-    """Decode bs with GpuDecoder on `device`, keeping the inputs, the rings
-    before the call and the packed output of the first max_frames frame_step
-    calls (all when None), in decode order. Pictures that decode on the host
-    oracle do not reach frame_step and have no entry."""
+def capture(bs: bytes, device, max_frames: int | None = None,
+            metrics=None) -> list[dict]:
+    """Decode bs with GpuDecoder on `device` (metrics: its DecodeMetrics or
+    None), keeping the inputs, the rings before the call and the packed
+    output of the first max_frames frames that reach the frame program (all
+    when None), in decode order. Pictures that decode on the host oracle do
+    not reach it and have no entry."""
     entries: list[dict] = []
-    orig = gp.frame_step
+    orig = frame_program.RingSet.dispatch
 
-    def spy(wire, ring_y, ring_c, dyn, mb_h, mb_w, flags, slot):
+    def spy(rs, step, key, wire, dyn, mb_h, mb_w, flags, slot, m=None):
         if max_frames is not None and len(entries) >= max_frames:
-            return orig(wire, ring_y, ring_c, dyn, mb_h, mb_w, flags, slot)
-        e = dict(wire={k: v.clone() for k, v in wire.items()}, dyn=dict(dyn), mb_h=mb_h,
-                 mb_w=mb_w, flags=tuple(flags), slot=slot, ring_y=ring_y.clone(),
-                 ring_c=ring_c.clone())
-        out = orig(wire, ring_y, ring_c, dyn, mb_h, mb_w, flags, slot)
-        e["packed"] = out.clone()
+            return orig(rs, step, key, wire, dyn, mb_h, mb_w, flags, slot, m)
+        e = dict(wire=convert.wire_from_numpy(wire, {}, rs.device)[0], dyn=dict(dyn),
+                 mb_h=mb_h, mb_w=mb_w, flags=tuple(flags), slot=slot,
+                 ring_y=rs.ring_y.clone(), ring_c=rs.ring_c.clone())
+        out = orig(rs, step, key, wire, dyn, mb_h, mb_w, flags, slot, m)
+        e["packed"] = out.clone()  # a replay's output is rewritten by the next
         entries.append(e)
         return out
 
-    gp.frame_step = spy  # _reconstruct looks frame_step up at every call
+    frame_program.RingSet.dispatch = spy  # looked up at every frame
     try:
-        with gp.GpuDecoder(device=device) as dec:
+        with gp.GpuDecoder(device=device, metrics=metrics) as dec:
             for fr in dec.decode_stream(bs):
                 fr.sync()
     finally:
-        gp.frame_step = orig
+        frame_program.RingSet.dispatch = orig
     return entries
 
 
@@ -343,15 +349,16 @@ def stage_sums(rows: list[dict]) -> dict:
 
 
 def probe_stream(bs: bytes, name: str, device="cuda", max_frames: int | None = None,
-                 replays: int = 5) -> dict:
-    """Capture, replay and attribute one stream; returns the JSON record."""
+                 replays: int = 5, metrics=None) -> dict:
+    """Capture, replay and attribute one stream (metrics: the capturing
+    decoder's DecodeMetrics or None); returns the JSON record."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    entries = capture(bs, device, max_frames)
+    entries = capture(bs, device, max_frames, metrics)
     if not entries:
-        raise RuntimeError(f"{name}: no frame reached frame_step")
+        raise RuntimeError(f"{name}: no frame reached the frame program")
     snap = sum(e["ring_y"].nbytes + e["ring_c"].nbytes for e in entries)
     rows = probe_entries(entries, device, replays, name)
     return {

@@ -389,3 +389,103 @@ def test_halo_wrappers_refuse_host_rows(cuda):
     halo = [torch.zeros((4, w), dtype=torch.uint8) for w in (32, 16, 16)]
     with pytest.raises(ValueError, match="halo"):
         deblock_cuda.deblock_frame(y, cb, cr, prep, 2, 2, halo=halo)
+
+
+# ---------------------------------------------------------------------------
+# GpuDecoder's frame programs: frame_step captured once per signature in a
+# CUDA graph (pipeline/frame_program.py) and replayed for every frame
+# ---------------------------------------------------------------------------
+
+
+def _committed(name):
+    import json
+    import os
+
+    data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "h264decode_tpu_torch", "data")
+    with open(os.path.join(data, name), "rb") as f:
+        bs = f.read()
+    with open(os.path.join(data, "smoke_md5.json")) as f:
+        return bs, json.load(f)[name]["frames"]
+
+
+def _decode_md5s(device, bs, metrics=None):
+    from chip_smoke import md5s
+    from h264decode_tpu_torch.pipeline.gpu_pipeline import GpuDecoder
+
+    with GpuDecoder(device=device, metrics=metrics) as dec:
+        return [md5s(f.planes()) for f in dec.decode_stream(bs)]
+
+
+@pytest.mark.parametrize("name", ["smoke_1080p_main_cabac.h264", "smoke_cif_high.h264"])
+def test_graph_path_decodes_bit_exact_and_a_warm_decoder_captures_nothing(
+        cuda, name, monkeypatch):
+    """The first decoder captures one program per signature and replays a
+    program for every frame (the frame that captured one too: its output
+    is the replay's, the eager warm call's is dropped), bit-exact with
+    libavcodec; a second decoder finds the programs the first returned and
+    captures none."""
+    from h264decode_tpu_torch.pipeline import frame_program
+    from h264decode_tpu_torch.utils.metrics import DecodeMetrics
+
+    monkeypatch.setattr(frame_program, "_idle", {})
+    bs, want = _committed(name)
+    cold, warm = DecodeMetrics(), DecodeMetrics()
+    assert _decode_md5s(cuda, bs, cold) == want
+    c = cold.counters
+    assert c["graph_captures"] == c["program_keys"] >= 1
+    assert c["graph_replays"] == len(want)
+    assert _decode_md5s(cuda, bs, warm) == want
+    w = warm.counters
+    assert w["graph_captures"] == 0 and w["graph_replays"] == len(want)
+    assert w["program_keys"] == c["program_keys"]
+
+
+def test_two_decoders_on_two_threads_are_bit_exact(cuda, monkeypatch):
+    """Two decoders of one geometry at the same time, each on its own thread
+    with a RingSet of its own: their captures (thread-local capture mode,
+    one at a time) and replays interleave, and both stay bit-exact."""
+    import threading
+
+    from h264decode_tpu_torch.pipeline import frame_program
+
+    monkeypatch.setattr(frame_program, "_idle", {})
+    bs, want = _committed("smoke_cif_high.h264")
+    got, start = [None, None], threading.Barrier(2)
+
+    def run(i):
+        start.wait(timeout=60)
+        got[i] = _decode_md5s(cuda, bs)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert got == [want, want]
+
+
+def test_an_uncapturable_stage_raises_naming_the_key(cuda, monkeypatch):
+    """A host synchronisation inside frame_step (a .item() in a stage) makes
+    the capture fail: the decoder raises, naming the program's key and the
+    call that the capture refused, and no frame comes back; nothing runs
+    eagerly in its place."""
+    from h264decode_tpu_torch.pipeline import frame_program, gpu_pipeline
+    from h264decode_tpu_torch.pipeline.gpu_pipeline import GpuDecoder
+
+    monkeypatch.setattr(frame_program, "_idle", {})
+    orig = gpu_pipeline._deblock_prep
+
+    def syncing(inp, *args, **kwargs):
+        inp["qp"].sum().item()
+        return orig(inp, *args, **kwargs)
+
+    monkeypatch.setattr(gpu_pipeline, "_deblock_prep", syncing)
+    bs, _ = _committed("smoke_cif_high.h264")
+    got = []
+    with pytest.raises(RuntimeError, match=r"frame program \(\(18, 22\).* capture failed at "
+                                           r"test_torch_cuda\.py:\d+ \(inp.*\.item\(\)\)"):
+        with GpuDecoder(device=cuda) as dec:
+            got.extend(dec.decode_stream(bs))
+    assert got == []

@@ -66,14 +66,25 @@ every phase runs, and step 1 always does:
    four kernels with their halo inputs (intra's row above MB row 0,
    deblocking's 4 rows above it, filtered and returned) at one band of a
    1x4 mesh at 1080p (17 x 120 MBs), held and timed as in step 2: the
-   kernel table's *_halo rows. Then ShardedDecoder 1x1, 1x2 and 1x4 (halo mode)
-   on the 1080p Main stream and 1x4 on its 4-slice, deblocking-off twin
-   (aligned mode, checked), and GopParallelDecoder 2x1 and 2x2 on the
-   16-frame 1080p Main stream with an IDR every 4 frames: every frame
-   against the committed MD5s, launch counters set to 0 just before the
-   checked decode and read just after (every kernel launched, the halo
-   launches exactly where bands pass rows, one device kernel per call),
-   frames/s beside GpuDecoder's on the same stream. Then
+   kernel table's *_halo rows. Then ShardedDecoder 1x1, 1x2 and 1x4 (halo
+   mode) on the 1080p Main stream and 1x4 on its 4-slice, deblocking-off
+   twin (aligned mode, checked), and GopParallelDecoder 2x1 and 2x2 on the
+   16-frame 1080p Main stream with an IDR every 4 frames. Every frame runs
+   through band programs (dist/sharded.py: CUDA graphs captured once per
+   band and signature, replayed every frame, the four halo kernels inside).
+   A first decode captures them; in the checked decode (launch counters
+   set to 0 just before, read just after) every frame must match the
+   committed MD5s, each kernel must have launched exactly where the eager
+   step launched it (the *_halo launches where bands pass rows, none
+   elsewhere), one device kernel per call, no wrapper may have entered its
+   C entry (every launch came from a replay), nothing may be captured and
+   every band program of every frame replayed. Prints the programs' keys,
+   captures, capture seconds, replays, dispatch seconds per frame and graph
+   pool bytes of both decodes, read from the ShardSets' own counts (so the
+   gop slots' too), and frames/s beside GpuDecoder's on the same stream;
+   the 1x1 and 1x4 halo runs get a torch.profiler trace (host launch calls
+   a frame, under 100; device activities a frame; idle share; device
+   records of each kernel, from replays alone). Then
    `python -m h264decode_tpu_torch decode --backend sharded --mesh 1x1`.
 6. The stage-attribution probe (h264decode_tpu_torch/tools/perf_probe.py)
    on the 1080p Main, hard, High 4:2:2 10-bit and High 4:4:4 streams: every
@@ -97,6 +108,7 @@ Raw kernel-build logs go to chiprun_out/chip_smoke_build.log.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -104,6 +116,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -158,6 +171,8 @@ DIST_RUNS = (
 )
 # the run whose launches fill the kernel table's *_halo rows
 HALO_RUN = "sharded 1x4 halo"
+# the dist runs traced with torch.profiler
+TRACED_DIST_RUNS = ("sharded 1x1", HALO_RUN)
 PHASES = ("kernels", "main", "serve", "dist", "probe")
 
 
@@ -689,8 +704,10 @@ def busy_seconds(events) -> float:
     return busy / 1e6
 
 
-def trace(dev, bs: bytes, name: str, wall_unprofiled: float, kernel_names) -> dict:
-    """One decode under torch.profiler (CPU + CUDA): device busy time (the
+def trace(dev, bs: bytes, name: str, wall_unprofiled: float, kernel_names,
+          decode=None) -> dict:
+    """One decode under torch.profiler (CPU + CUDA), through GpuDecoder or
+    decode() -> (frames, wall seconds): device busy time (the
     union of kernel and memcpy intervals), the idle share against the
     unprofiled wall time of the same stream (profiling slows the host, so
     the profiled wall would inflate it), device activities and host launch
@@ -705,7 +722,7 @@ def trace(dev, bs: bytes, name: str, wall_unprofiled: float, kernel_names) -> di
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        frames, wall, _ = decode_timed(dev, bs)
+        frames, wall = decode() if decode is not None else decode_timed(dev, bs)[:2]
     events = prof.events()
     dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev_events:
@@ -765,13 +782,16 @@ def eager_memory(dev, bs: bytes, name: str) -> int:
     return peak
 
 
-def pool_bytes(rs) -> int:
-    """Device bytes the caching allocator holds in the graph pool of a
-    RingSet (its programs' outputs and scratch)."""
+def pool_bytes(ps) -> int:
+    """Device bytes the caching allocator holds in the graph pools of a
+    RingSet or ShardSet (its programs' outputs and scratch)."""
     import torch
 
+    pools = {tuple(p) for p in ps.pools.values()}
+    if not pools:  # a set of CPU devices
+        return 0
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id") or ()) == tuple(rs.pool))
+               if tuple(seg.get("segment_pool_id") or ()) in pools)
 
 
 def main_path(dev, name: str, want: dict, traced: bool = True) -> dict:
@@ -982,61 +1002,147 @@ def halo_phase(dev) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def wrapper_entry_calls():
+    """Inside, count the wrappers' calls into their kernels' C entries
+    (_build.launch), by wrapper name: a replayed graph makes none, so a
+    decode that counts launches (added per replay) and no entry calls ran
+    its kernels inside graphs."""
+    from h264decode_tpu_torch.kernels import _build
+
+    calls: Counter = Counter()
+    orig = _build.launch
+
+    def counted(name, *args):
+        calls[name] += 1
+        return orig(name, *args)
+
+    _build.launch = counted
+    try:
+        yield calls
+    finally:
+        _build.launch = orig
+
+
+def shard_sets() -> dict:
+    """Every idle ShardSet (dist/sharded.py's process-wide cache; a closed
+    decoder returns its set there) by id: (set, its own counters, timers,
+    timer calls, frames run by each of its steps)."""
+    from h264decode_tpu_torch.dist import sharded
+
+    return {id(s): (s, Counter(s.metrics.counters), Counter(s.metrics.timers),
+                    Counter(s.metrics.timer_calls), {k: st.frames for k, st in s.steps.items()})
+            for sets in sharded._idle.values() for s in sets}
+
+
+def shard_programs(before: dict, after: dict, frames: int) -> dict:
+    """The band programs' figures of one decode, from the ShardSets it used
+    (their own counts, after against before; a set used dispatched frames):
+    the keys whose programs ran, captures, capture seconds, replays,
+    dispatch seconds per frame and the bytes of the sets' graph pools."""
+    counters, timers, keys, used = Counter(), Counter(), set(), []
+    for i, (s, c, t, calls, steps) in after.items():
+        _, c0, t0, calls0, steps0 = before.get(i, (None, Counter(), Counter(), Counter(), {}))
+        if calls["dispatch"] != calls0["dispatch"]:
+            used.append(s)
+            counters.update(c - c0)
+            timers.update({k: v - t0[k] for k, v in t.items()})
+            keys |= {k for k, n in steps.items() if n != steps0.get(k, 0)}
+    figs = program_figures(counters, timers, frames)
+    figs["keys"] = len(keys)
+    figs["sets"] = len(used)
+    figs["graph_pool_bytes"] = sum(pool_bytes(s) for s in used)
+    return figs
+
+
 def dist_run(dev, label: str, name: str, shape: tuple, kind: str, mode, want: dict) -> dict:
     """Decode a committed stream through ShardedDecoder or GopParallelDecoder
-    on a mesh that repeats `dev` (launch counters set to 0 just before the
-    checked decode, read just after): every frame against the committed
-    MD5s, the frames' mode, every kernel of the run launched (the *_halo
-    launches where bands pass rows between them, none elsewhere), one device
-    kernel per call. frames/s from the median wall of three decodes, each
-    timed to the last frame's host planes."""
+    on a mesh that repeats `dev`: a decode that captures the band programs,
+    then the checked decode (launch counters set to 0 just before, read just
+    after): every frame against the committed MD5s, the frames' mode, each
+    kernel launched exactly where the eager step launched it (band 0 of a
+    halo frame without halo rows, every later band with them as *_halo, an
+    aligned frame's bands without), one device kernel per call, all of them
+    inside graph replays (no wrapper entered its C entry), no capture and
+    every band program of every frame replayed. Prints the programs'
+    figures of both decodes (read from the ShardSets' own counts, so the gop
+    slots' too). frames/s from the median wall of three decodes, each timed
+    to the last frame's host planes. The 1x1 and 1x4 halo runs are traced."""
     from h264decode_tpu_torch.dist.decoder import ShardedDecoder
     from h264decode_tpu_torch.dist.gop import GopParallelDecoder
     from h264decode_tpu_torch.dist.mesh import make_mesh
     from h264decode_tpu_torch.kernels import _build
+    from h264decode_tpu_torch.utils.metrics import DecodeMetrics
 
     G, R = shape
     mesh = make_mesh(G, R, devices=[dev] * (G * R))
     with open(os.path.join(DATA, name), "rb") as f:
         bs = f.read()
 
-    def decode():
-        dec = ShardedDecoder(mesh) if kind == "sharded" else GopParallelDecoder(mesh)
+    def decode(metrics=None):
+        dec = (ShardedDecoder(mesh, metrics=metrics) if kind == "sharded"
+               else GopParallelDecoder(mesh))
         t0 = time.perf_counter()
         frames = dec.decode_stream(bs)  # host planes: every frame is done on the card
         wall = time.perf_counter() - t0
         if kind == "sharded":
-            dec.close()
+            dec.close()  # gop slots close their decoders themselves
         return dec, frames, wall
 
-    decode()  # first-call costs (allocator, tables)
+    n = len(want["frames"])
+    s0 = shard_sets()
+    decode()  # the captures and first-call costs (allocator, tables)
+    s1 = shard_sets()
     _build.launches.clear()
     _build.device_kernels.clear()
-    dec, frames, wall = decode()
+    metrics = DecodeMetrics()  # a ShardedDecoder's stage timers (gop slots take none)
+    with wrapper_entry_calls() as entries:
+        dec, frames, wall = decode(metrics)
     names = ROW_KERNELS + HALO_KERNELS
     launches = {k: _build.launches[k] for k in names}
     kernels = {k: _build.device_kernels[k] for k in names}
+    progs = {"capturing decode": shard_programs(s0, s1, n),
+             "checked decode": shard_programs(s1, shard_sets(), n)}
     got = [md5s(fr.planes()) for fr in frames]
     if got != want["frames"]:
         bad = [i for i, (g, w) in enumerate(zip(got, want["frames"])) if g != w]
         raise RuntimeError(f"{label}: frames {bad} differ from libavcodec "
-                           f"({len(got)} decoded, {len(want['frames'])} expected)")
+                           f"({len(got)} decoded, {n} expected)")
     if dict(dec.modes) != {mode: len(frames)}:
         raise RuntimeError(f"{label}: frames took the modes {dict(dec.modes)}, not {mode}")
-    expect = ROW_KERNELS + (HALO_KERNELS if R > 1 and mode != "aligned" else ())
-    missing = [k for k in expect if launches[k] == 0]
-    stray = {k: v for k, v in launches.items() if k not in expect and v}
-    many = {k: kernels[k] / launches[k] for k in expect
-            if launches[k] and kernels[k] != launches[k]}
-    if missing or stray or many:
-        raise RuntimeError(f"{label}: kernels never launched {missing}, launched where no "
-                           f"rows pass between bands {stray}, device kernels per call {many}")
+    halo = mode == "halo"
+    expect = {k: n if halo else n * R for k in ROW_KERNELS}
+    expect.update({k: n * (R - 1) if halo else 0 for k in HALO_KERNELS})
+    if launches != expect or kernels != expect:
+        raise RuntimeError(f"{label}: wrapper calls {launches} and device kernels {kernels}; "
+                           f"the eager step launched {expect} of each")
+    per_frame = 2 * R if halo else R  # band programs a frame
+    warm = progs["checked decode"]
+    if warm["captures"] or warm["replays"] != per_frame * n or sum(entries.values()):
+        raise RuntimeError(f"{label}: with the programs captured, a decode of {n} frames gave "
+                           f"{warm} and wrapper entry calls {dict(entries)}")
     walls = [wall] + [decode()[2] for _ in range(2)]
     fps = len(frames) / statistics.median(walls)
     log(f"{label} ({name}): {len(frames)} frames bit-exact vs libavcodec MD5s; walls {walls} s, "
-        f"median -> {fps} frames/s; wrapper calls {launches}; device kernels {kernels}")
-    return dict(run=label, stream=name, mesh=f"{G}x{R}", frames=len(frames), fps=fps,
-                walls_s=walls, launches=launches)
+        f"median -> {fps} frames/s; wrapper calls (counted at capture, added per replay) "
+        f"{launches}; device kernels {kernels}; wrapper entry calls 0; band programs "
+        f"{json.dumps(progs)}")
+    if kind == "sharded":
+        log(f"{label}: stage timers {json.dumps(metrics.summary())}")
+    res = dict(run=label, stream=name, mesh=f"{G}x{R}", frames=len(frames), fps=fps,
+               walls_s=walls, launches=launches, programs=progs)
+    if label in TRACED_DIST_RUNS:
+        with wrapper_entry_calls() as entries:
+            rec = trace(dev, bs, label, statistics.median(walls), ROW_KERNELS,
+                        decode=lambda: decode()[1:])
+        # the kernels' device records came from graph replays alone
+        rec["wrapper_entry_calls"] = sum(entries.values())
+        if rec["wrapper_entry_calls"] or rec["host_launch_calls_per_frame"] >= 100:
+            raise RuntimeError(f"{label}: {rec['host_launch_calls_per_frame']} host launch calls "
+                               f"a frame, wrapper entry calls {dict(entries)}")
+        log(f"{label}: trace {json.dumps(rec)}")
+        res["trace"] = rec
+    return res
 
 
 def dist_phase(dev, want: dict, kernels: dict) -> list:
@@ -1061,6 +1167,9 @@ def dist_phase(dev, want: dict, kernels: dict) -> list:
             for k in HALO_KERNELS:
                 kernels[k]["launches"] = r["launches"][k]
                 kernels[k]["launch_stream"] = f"{r['stream']} (ShardedDecoder {r['mesh']})"
+                # dist_run held it: counted at capture, added per replay, no
+                # wrapper entered its kernel's C entry in the checked decode
+                kernels[k]["in_graph"] = True
     # the CLI entry point with the sharded backend: a 1x1 mesh of the card
     name = DIST_RUNS[0][1]
     os.makedirs(OUT, exist_ok=True)

@@ -31,6 +31,12 @@ MD5s merged into smoke_md5.json):
                                  deblocking filter off (slices=4,
                                  no-deblock=1): the aligned mode of a 1x4
                                  row-band mesh (dist/), 8 frames
+  smoke_cif_main_slices2_nodb.h264
+                                 352x288 Main CABAC, the CIF content with 2
+                                 slices of 9 MB rows each and the
+                                 deblocking filter off, 2 B-frames, 8
+                                 frames: the aligned mode of a 1x2 row-band
+                                 mesh
   smoke_1080p_main_gop4.h264     the 1080p Main stream's recipe over 16
                                  frames with an IDR every 4 (keyint=4,
                                  min-keyint=4, scenecut=0): four closed
@@ -230,6 +236,10 @@ def main(names=None):
         "smoke_1080p_main_slices4_nodb.h264": lambda: (lavc.encode_x264(
             frames_1080p(), qp=28, profile="main", cabac=True, bframes=2, preset="fast",
             gop=8, extra_x264="slices=4:no-deblock=1",
+        ), 8, "420"),
+        "smoke_cif_main_slices2_nodb.h264": lambda: (lavc.encode_x264(
+            frames_cif(), qp=28, profile="main", cabac=True, bframes=2, preset="medium",
+            gop=8, extra_x264="slices=2:no-deblock=1",
         ), 8, "420"),
         "smoke_1080p_high_hard.h264": lambda: (encode_hard(frames_1080p_hard(), gop=8),
                                                8, "420"),

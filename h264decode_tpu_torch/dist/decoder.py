@@ -19,9 +19,10 @@ from ..kernels import transform as tr_k
 from ..kernels.intra import K_I4, K_I8, K_I16
 from ..pipeline.deblock_prep import prepare_deblock
 from ..pipeline.decoder import Decoder
+from ..pipeline.frame_program import _timer
 from ..pipeline.gpu_pipeline import R_W_DEFAULT, _mb_avail_grids, _weight_tables
 from ..tensors.frame_tensors import MB_I_16X16, MB_I_NXN
-from .sharded import make_sharded_step
+from . import sharded
 
 
 def oracle_only(ft, sps, slices) -> bool:
@@ -43,25 +44,37 @@ class ShardedDecoder(Decoder):
     """Decodes one stream with the pixel pipeline sharded over the row axis
     of gop slot `slot` of `mesh` (dist/mesh.py). Slice-per-band streams take
     the band-parallel aligned mode; anything else the halo pipeline. `modes`
-    counts the frames each mode reconstructed ("aligned", "halo")."""
+    counts the frames each mode reconstructed ("aligned", "halo").
+
+    Every frame runs through the band programs of its signature
+    (dist/sharded.py), in a ShardSet per frame geometry checked out of the
+    process-wide cache (sharded.checkout) and returned by close(): a later
+    decoder of the same mesh row and geometry replays what this one
+    captured. metrics: `program_keys` (distinct signatures met),
+    `graph_captures`, `graph_replays` (one per band program a frame) and
+    the `prep` (build_inputs on the host), `graph_capture`, `dispatch` and
+    `download` timers."""
 
     def __init__(self, mesh, apply_deblock: bool = True, metrics=None, slot: int = 0):
         super().__init__(apply_deblock=apply_deblock, metrics=metrics)
         self.mesh = mesh
         self.slot = slot
         self.n_row = mesh.shape["row"]
-        self._step = None
-        self._step_geom = None
+        self._set: sharded.ShardSet | None = None  # checked out
+        self._keys: set = set()
         self._r_w = R_W_DEFAULT
         self.modes: Counter = Counter()
 
     def close(self):
         """Stop the per-slice entropy executor (multi-slice pictures start
-        one)."""
+        one) and return the ShardSet."""
         ex = getattr(self, "_slice_exec", None)
         if ex is not None:
             ex.shutdown(wait=True)
             self._slice_exec = None
+        if self._set is not None:
+            sharded.checkin(self._set)
+            self._set = None
 
     def _aligned(self, ft, slices) -> bool:
         """True when the band-local mode is exact: every band boundary is a
@@ -91,17 +104,24 @@ class ShardedDecoder(Decoder):
         n_refs = max(1, sps.max_num_ref_frames + 1)
         qp_offs = (pps.chroma_qp_index_offset, pps.second_chroma_qp_index_offset)
         has_pcm = bool(ft.pcm_samples)
-        geom = (mb_h, mb_w, qp_offs, halo, has_pcm)
-        if self._step is None or self._step_geom != geom:
-            self._step = make_sharded_step(
-                self.mesh, mb_h, mb_w, apply_deblock=self.apply_deblock,
-                qp_offsets=qp_offs, halo=halo, has_pcm=has_pcm,
-            )
-            self._step_geom = geom
-        raw = self.build_inputs(ft, sps, pps, slices, ref_lists, weight_ctx, poc,
-                                n_refs=n_refs, has_pcm=has_pcm)
+        devs = self.mesh.row(self.slot)
+        if self._set is None or self._set.geom != (mb_h, mb_w):
+            if self._set is not None:
+                sharded.checkin(self._set)
+                self._set = None
+            self._set = sharded.checkout(devs, (mb_h, mb_w))
+        with _timer(self.metrics, "prep"):
+            raw = self.build_inputs(ft, sps, pps, slices, ref_lists, weight_ctx, poc,
+                                    n_refs=n_refs, has_pcm=has_pcm)
+        key = sharded.signature(raw, devs, mb_h, mb_w, self.apply_deblock, qp_offs, halo,
+                                has_pcm)
+        if key not in self._keys:
+            self._keys.add(key)
+            if self.metrics is not None:
+                self.metrics.count("program_keys")
         self.modes["halo" if halo else "aligned"] += 1
-        return self._step(raw, self.slot)
+        return self._set.step(key, raw, mb_h, mb_w, self.apply_deblock, qp_offs, halo, has_pcm,
+                              self.metrics)
 
     def build_inputs(self, ft, sps, pps, slices, ref_lists, weight_ctx, poc, *,
                      n_refs: int, has_pcm: bool) -> dict[str, np.ndarray]:

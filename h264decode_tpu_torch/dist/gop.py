@@ -5,10 +5,13 @@ are independent decode problems. The stream is split at IDR access units
 (pipeline/seek.scan_access_points), the GOPs go round-robin to the G gop
 slots, and each slot runs in a thread of its own: a ShardedDecoder of the
 slot's GOPs whose frames are reconstructed on the R bands of mesh row g
-(dist/sharded.py), each frame in the mode it allows. The native entropy
-engine releases the GIL in its C entry points and each slot's step owns its
-devices, so the slots' entropy and reconstruction overlap; slots that share
-a card share its stream.
+(dist/sharded.py), each frame in the mode it allows, through band programs
+in a ShardSet of the slot's own: slots that share a card and a frame
+geometry take distinct sets, and each returns its set when its thread ends,
+so that a later decode replays them. The native entropy engine releases the
+GIL in its C entry points and each slot's step owns its devices, so the
+slots' entropy and reconstruction overlap; slots that share a card share
+its stream.
 
 The JAX decoder runs the slots in lockstep because its step is one SPMD
 program over all of them: each batch waits for a frame of every slot, pads

@@ -22,6 +22,11 @@ per stream geometry.
 
 On the CPU the same objects run frame_step eagerly on their static
 buffers, with no graph.
+
+The mechanism is not frame_step's own: a Program captures and replays any
+callable, and a ProgramSet holds the pools, capture streams and failure of
+programs that share static buffers. The row-band sharded step's band
+programs (dist/sharded.py) are Programs in a ProgramSet of their own.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 import traceback
 from collections import deque
 
@@ -37,6 +43,7 @@ import torch
 
 from .. import convert
 from ..kernels import _build
+from ..utils.metrics import DecodeMetrics
 
 
 def signature(wire: dict, dyn: dict, mb_h: int, mb_w: int, flags: tuple) -> tuple:
@@ -69,59 +76,47 @@ def _refused_call(exc: BaseException) -> str:
 
 # captures run one at a time in the process: each begins with a device-wide
 # synchronize, which should not meet another thread's capture in progress;
-# they are rare (once per key and RingSet)
+# they are rare (once per key and set)
 _capture_lock = threading.Lock()
 
 
-class FrameProgram:
-    """frame_step for one signature: a static wire buffer (the typed views
-    of its arrays make the program's wire), a static slot and, on a CUDA
-    device, the captured graph, its static output and the wrapper launches
-    its capture recorded."""
+class Program:
+    """One captured callable: on a CUDA device its graph, its static output
+    and the wrapper launches its capture recorded; on the CPU none of these
+    (run calls the callable). `what` names the program in errors."""
 
-    def __init__(self, key: tuple, layout: list, nbytes: int, dyn: dict, device):
+    what = "program"
+
+    def __init__(self, key: tuple, what: str | None = None):
         self.key = key
-        # held: the signature names these tables by identity, so no other
-        # table may take their id while the program lives
-        self.dyn = dyn
-        self.wire_buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
-        self.wire = convert.unpack_wire(self.wire_buf, layout)
-        self.slot = torch.zeros((), dtype=torch.int64, device=device)
+        if what is not None:
+            self.what = what
         self.graph = None
         self.out = None
         self.counts = None
 
-    def load(self, host: torch.Tensor, slot: int) -> None:
-        """Copy a packed wire (pinned on a CUDA device) into the static
-        buffer and write the slot, both on the current stream."""
-        self.wire_buf.copy_(host, non_blocking=True)
-        self.slot.fill_(slot)
-
-    def _call(self, step, ring_y, ring_c, mb_h, mb_w, flags):
-        return step(self.wire, ring_y, ring_c, self.dyn, mb_h, mb_w, flags, self.slot)
-
-    def capture(self, step, ring_y, ring_c, mb_h, mb_w, flags, pool, side) -> None:
-        """One eager warm call on the side stream (it builds and loads the
-        kernels and copies the constant tables to the device, which a
-        capture may not do), then the capture on it into the pool. The warm
-        call writes the frame's ring slot as the replays do. A capture that
-        fails raises, naming the key and the call that the capture refused."""
-        device = self.wire_buf.device
+    def capture(self, fn, pool, side) -> None:
+        """One eager warm call of fn() on the side stream (it builds and
+        loads the kernels and copies the constant tables to the device,
+        which a capture may not do), then the capture of fn() on it into the
+        pool. A capture that fails raises, naming the key and the call that
+        the capture refused."""
+        device = side.device
         cur = torch.cuda.current_stream(device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            self._call(step, ring_y, ring_c, mb_h, mb_w, flags)
+            fn()
         cur.wait_stream(side)
         g = torch.cuda.CUDAGraph()
         failure = out = None
         # thread_local: other threads (a _PackedFrame waiting on its event,
-        # another decoder's worker, serve's handlers) keep using the card
-        # while this one captures
+        # another decoder's worker, serve's handlers, gop slots) keep using
+        # the card while this one captures
         with _capture_lock, torch.cuda.stream(side), _build.counted_apart() as counts:
             torch.cuda.synchronize(device)
             g.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
-                out = self._call(step, ring_y, ring_c, mb_h, mb_w, flags)
+                out = fn()
             except Exception as exc:  # the capture is invalid: end it, then raise
                 failure = exc
             try:
@@ -130,16 +125,15 @@ class FrameProgram:
                 failure = failure or exc
         cur.wait_stream(side)
         if failure is not None:
-            raise RuntimeError(f"frame program {self.key}: the CUDA graph capture failed at "
+            raise RuntimeError(f"{self.what} {self.key}: the CUDA graph capture failed at "
                                f"{_refused_call(failure)}: {failure}") from failure
         self.graph, self.out, self.counts = g, out, counts
 
-    def run(self, step, ring_y, ring_c, mb_h, mb_w, flags) -> torch.Tensor:
-        """The frame's packed output: the graph replayed (the static output,
-        rewritten by the next replay), or on the CPU frame_step called on
-        the static buffers (a new tensor)."""
+    def run(self, fn):
+        """fn()'s output: the graph replayed (the static output, rewritten
+        by the next replay), or on the CPU fn() called (new tensors)."""
         if self.graph is None:
-            return self._call(step, ring_y, ring_c, mb_h, mb_w, flags)
+            return fn()
         self.graph.replay()
         # the wrappers' launches ran once more: counted at capture, added
         # per replay
@@ -147,17 +141,97 @@ class FrameProgram:
         return self.out
 
 
+class FrameProgram(Program):
+    """frame_step for one signature: a static wire buffer (the typed views
+    of its arrays make the program's wire) and a static slot."""
+
+    what = "frame program"
+
+    def __init__(self, key: tuple, layout: list, nbytes: int, dyn: dict, device):
+        super().__init__(key)
+        # held: the signature names these tables by identity, so no other
+        # table may take their id while the program lives
+        self.dyn = dyn
+        self.wire_buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.wire = convert.unpack_wire(self.wire_buf, layout)
+        self.slot = torch.zeros((), dtype=torch.int64, device=device)
+
+    def load(self, host: torch.Tensor, slot: int) -> None:
+        """Copy a packed wire (pinned on a CUDA device) into the static
+        buffer and write the slot, both on the current stream."""
+        self.wire_buf.copy_(host, non_blocking=True)
+        self.slot.fill_(slot)
+
+    def call(self, step, ring_y, ring_c, mb_h, mb_w, flags):
+        """frame_step on the static buffers, as a callable of no argument
+        (the warm call, the capture and, on the CPU, every frame). The
+        warm call writes the frame's ring slot as the replays do."""
+        return lambda: step(self.wire, ring_y, ring_c, self.dyn, mb_h, mb_w, flags, self.slot)
+
+
 def _timer(metrics, name: str):
     return contextlib.nullcontext() if metrics is None else metrics.timer(name)
 
 
-class RingSet:
+class ProgramSet:
+    """Programs captured against static buffers of their own, on `devices`
+    (one or more torch.devices): a graph pool and a capture stream per
+    distinct CUDA device, and the failure of a capture. One decoder uses a
+    set at a time (checkout / checkin). `metrics` counts the set's own
+    captures and replays and times them, whichever decoder ran them."""
+
+    def __init__(self, devices):
+        # every program of the set on a device captures into one pool: they
+        # replay one after another on one stream, and each holds its static
+        # inputs and outputs for its life, so a replay writes no memory that
+        # a live tensor of another program holds; all else it writes is
+        # scratch, written before it is read. One capture stream, because
+        # the allocator reuses a freed block only on the stream it was used on
+        cuda = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
+        self.pools = {d: torch.cuda.graph_pool_handle() for d in cuda}
+        self.streams = {d: torch.cuda.Stream(d) for d in cuda}
+        self.metrics = DecodeMetrics()
+        # the error of a failed capture: the allocator is left recording
+        # into the pool, so the set captures no more and is not reused
+        self.failure = None
+
+    def check(self) -> None:
+        """Raise the failure of an earlier capture, if any."""
+        if self.failure is not None:
+            raise RuntimeError(f"an earlier capture of this decoder's programs failed: "
+                               f"{self.failure}") from self.failure
+
+    def capture(self, prog: Program, fn, device: torch.device, metrics=None) -> None:
+        """Capture prog from fn on device into the set's pool and stream
+        there; a failure is recorded, then raised. Counts `graph_captures`
+        and times `graph_capture` (the warm call and the capture)."""
+        t0 = time.time()
+        try:
+            prog.capture(fn, self.pools[device], self.streams[device])
+        except RuntimeError as exc:
+            self.failure = exc
+            raise
+        self.add_time("graph_capture", time.time() - t0, metrics)
+        self.count("graph_captures", metrics)
+
+    def add_time(self, name: str, seconds: float, metrics=None) -> None:
+        self.metrics.add_time(name, seconds)
+        if metrics is not None:
+            metrics.add_time(name, seconds)
+
+    def count(self, name: str, metrics=None, n: int = 1) -> None:
+        self.metrics.count(name, n)
+        if metrics is not None:
+            metrics.count(name, n)
+
+
+class RingSet(ProgramSet):
     """The DPB rings of one (device, ring geometry) and the frame programs
     captured against them. geom = (luma ring shape, chroma ring shape,
-    sample dtype), as GpuDecoder._ring_geom_of gives it. One decoder uses a
-    RingSet at a time (checkout / checkin)."""
+    sample dtype), as GpuDecoder._ring_geom_of gives it."""
 
     def __init__(self, device: torch.device, geom: tuple):
+        super().__init__([device])
         luma, chroma, dt = geom
         self.device = device
         self.geom = geom
@@ -170,18 +244,6 @@ class RingSet:
         self.programs: dict[tuple, FrameProgram] = {}
         self._tables: dict[tuple, dict] = {}
         self._staging: deque = deque()  # (copy-done event, pinned buffer)
-        # every program of the set captures into one pool: they replay one
-        # after another on one stream, and each holds its static wire, slot
-        # and output for its life, so a replay writes no memory that a live
-        # tensor of another program holds; all else it writes is scratch,
-        # written before it is read. One capture stream, because the
-        # allocator reuses a freed block only on the stream it was used on
-        cuda = device.type == "cuda"
-        self.pool = torch.cuda.graph_pool_handle() if cuda else None
-        self.stream = torch.cuda.Stream(device) if cuda else None
-        # the error of a failed capture: the allocator is left recording
-        # into the pool, so the set captures no more and is not reused
-        self.failure = None
 
     def tables(self, tabs: dict) -> dict:
         """The device copies of a set of per-(SPS, PPS) scaling-list tables
@@ -217,34 +279,26 @@ class RingSet:
         metrics: `graph_captures`, `graph_replays`, the `graph_capture`
         timer (the warm call and the capture) and the `dispatch` timer (the
         upload, slot write and replay, or the eager call on the CPU)."""
-        if self.failure is not None:
-            raise RuntimeError(f"an earlier capture of this decoder's programs failed: "
-                               f"{self.failure}") from self.failure
+        self.check()
         host, layout = self._stage(wire)
         prog = self.programs.get(key)
-        if prog is None:
+        new = prog is None
+        if new:
             prog = FrameProgram(key, layout, host.numel(), dyn, self.device)
+        fn = prog.call(step, self.ring_y, self.ring_c, mb_h, mb_w, flags)
+        if new:
             if self.device.type == "cuda":
-                with _timer(metrics, "graph_capture"):
-                    prog.load(host, slot)
-                    try:
-                        prog.capture(step, self.ring_y, self.ring_c, mb_h, mb_w, flags,
-                                     self.pool, self.stream)
-                    except RuntimeError as exc:
-                        self.failure = exc
-                        raise
-                if metrics is not None:
-                    metrics.count("graph_captures")
+                prog.load(host, slot)
+                self.capture(prog, fn, self.device, metrics)
             self.programs[key] = prog
         with _timer(metrics, "dispatch"):
             prog.load(host, slot)
-            out = prog.run(step, self.ring_y, self.ring_c, mb_h, mb_w, flags)
+            out = prog.run(fn)
         if self.device.type == "cuda":
             ev = torch.cuda.Event()
             ev.record()
             self._staging.append((ev, host))  # kept until its copy has run
-            if metrics is not None:
-                metrics.count("graph_replays")
+            self.count("graph_replays", metrics)
         return out
 
 

@@ -30,8 +30,12 @@ class DecodeMetrics:
         try:
             yield
         finally:
-            self.timers[name] += time.time() - t0
-            self.timer_calls[name] += 1
+            self.add_time(name, time.time() - t0)
+
+    def add_time(self, name: str, seconds: float):
+        """One call of timer `name` that took `seconds`."""
+        self.timers[name] += seconds
+        self.timer_calls[name] += 1
 
     def summary(self) -> dict:
         wall = time.time() - self._t0

@@ -489,3 +489,92 @@ def test_an_uncapturable_stage_raises_naming_the_key(cuda, monkeypatch):
         with GpuDecoder(device=cuda) as dec:
             got.extend(dec.decode_stream(bs))
     assert got == []
+
+
+# ---------------------------------------------------------------------------
+# the row-band sharded step's band programs (dist/sharded.py): captured once
+# per band and signature in CUDA graphs, with the halo kernels inside, and
+# replayed for every frame, on meshes that repeat cuda:0
+# ---------------------------------------------------------------------------
+
+ROW_KERNELS = ("intra_luma", "intra_chroma", "deblock_luma", "deblock_chroma")
+# stream -> the mode every frame of it takes on a 1x2 mesh
+SHARDED_STREAMS = {"halo": "smoke_cif_high.h264", "aligned": "smoke_cif_main_slices2_nodb.h264"}
+
+
+def _sharded_md5s(mesh, bs, metrics=None):
+    from chip_smoke import md5s
+    from h264decode_tpu_torch.dist.decoder import ShardedDecoder
+
+    dec = ShardedDecoder(mesh, metrics=metrics)
+    try:
+        return [md5s(f.planes()) for f in dec.decode_stream(bs)], dict(dec.modes)
+    finally:
+        dec.close()
+
+
+@pytest.mark.parametrize("mode", sorted(SHARDED_STREAMS))
+def test_sharded_programs_bit_exact_and_a_warm_decoder_captures_nothing(cuda, mode,
+                                                                         monkeypatch):
+    """ShardedDecoder on a 1x2 mesh of the card: the first decoder captures
+    every band program of each signature (a base and a recon program a band
+    in halo mode, one a band when aligned) and replays them for every frame;
+    the frames equal the same decoder's on a 1x2 mesh of the CPU (the plain
+    kernels, run eagerly) and libavcodec's committed MD5s. A second
+    decoder captures nothing and replays every program of every frame, and
+    the wrappers' counters (counted at capture, added per replay) equal
+    what the eager step counted: band 0 launches each kernel without halo
+    rows, band 1 with them (`*_halo`), one device kernel a call; when
+    aligned, both bands launch them without."""
+    from h264decode_tpu_torch.dist import sharded
+    from h264decode_tpu_torch.dist.mesh import make_mesh
+    from h264decode_tpu_torch.utils.metrics import DecodeMetrics
+
+    monkeypatch.setattr(sharded, "_idle", {})
+    bs, want = _committed(SHARDED_STREAMS[mode])
+    mesh = make_mesh(1, 2, devices=[cuda, cuda])
+    per_frame = 4 if mode == "halo" else 2
+    cold, warm = DecodeMetrics(), DecodeMetrics()
+    cpu = torch.device("cpu")
+    assert _sharded_md5s(make_mesh(1, 2, devices=[cpu, cpu]), bs) == (want, {mode: len(want)})
+    assert _sharded_md5s(mesh, bs, cold) == (want, {mode: len(want)})
+    c = cold.counters
+    assert c["graph_captures"] == per_frame * c["program_keys"] >= per_frame
+    assert c["graph_replays"] == per_frame * len(want)
+    halo_names = tuple(k + "_halo" for k in ROW_KERNELS)
+    before = _launch_counts(ROW_KERNELS + halo_names)
+    assert _sharded_md5s(mesh, bs, warm) == (want, {mode: len(want)})
+    w = warm.counters
+    assert w["graph_captures"] == 0 and w["graph_replays"] == per_frame * len(want)
+    assert w["program_keys"] == c["program_keys"]
+    after = _launch_counts(ROW_KERNELS + halo_names)
+    got = {k: tuple(a - b for a, b in zip(after[k], before[k])) for k in after}
+    n = len(want)
+    expect = {k: (n, n) if mode == "halo" else (2 * n, 2 * n) for k in ROW_KERNELS}
+    expect.update({k: (n, n) if mode == "halo" else (0, 0) for k in halo_names})
+    assert got == expect
+
+
+def test_an_uncapturable_band_stage_raises_naming_the_key(cuda, monkeypatch):
+    """A host synchronisation inside a band program (a .item() in the base
+    stage) makes its capture fail: the decoder raises, naming the program
+    and its key and the refused call, returns no frame and never runs the
+    stage eagerly in its place; the set is not reused."""
+    from h264decode_tpu_torch.dist import sharded
+    from h264decode_tpu_torch.dist.mesh import make_mesh
+
+    monkeypatch.setattr(sharded, "_idle", {})
+    orig = sharded._band_base
+
+    def syncing(loc, *args, **kwargs):
+        loc["qp"].sum().item()
+        return orig(loc, *args, **kwargs)
+
+    monkeypatch.setattr(sharded, "_band_base", syncing)
+    bs, _ = _committed("smoke_cif_high.h264")
+    got = []
+    with pytest.raises(RuntimeError, match=r"sharded program \('base', band 0\) \(\(device.* "
+                                           r"capture failed at test_torch_cuda\.py:\d+ "
+                                           r"\(loc.*\.item\(\)\)"):
+        got.extend(_sharded_md5s(make_mesh(1, 2, devices=[cuda, cuda]), bs)[0])
+    assert got == [] and sharded._idle == {}

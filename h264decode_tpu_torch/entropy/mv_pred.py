@@ -36,6 +36,23 @@ class MotionContext:
         # (9.3.3.1.1.6 — per PARTITION, not per macroblock)
         self.direct = np.zeros((mb_h * 4, mb_w * 4), bool)
         self.slice_id = slice_id_per_mb  # shared with FrameTensors
+        self._reset_state()
+
+    def reset(self, inter: bool = True) -> None:
+        """Return the grids to their fresh values in place (the slice ids
+        are FrameTensors.reset's): the entropy engine then reads this
+        context as a freshly made one. inter=False: no MB was inter
+        predicted, and an intra MB writes only zero vectors (and no |mvd|
+        or direct flag)."""
+        if inter:
+            self.mv[...] = 0
+            self.absmvd[...] = 0
+            self.direct[...] = False
+        self.ref[...] = UNAVAILABLE
+        self.refctx[...] = UNAVAILABLE
+        self._reset_state()
+
+    def _reset_state(self) -> None:
         self.cur_slice = -1
         # MBAFF mode (8.4.1.3.2): neighbor derivation through the 6.4.10
         # mapper with frame<->field unit conversion. Grids hold each MB's

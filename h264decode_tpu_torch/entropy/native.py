@@ -25,7 +25,9 @@ from ctypes import POINTER, c_int8, c_int16, c_int32, c_int64, c_uint8, c_void_p
 
 import numpy as np
 
+from ..tensors.frame_tensors import MB_B_DIRECT, MB_I_PCM, MB_P, FrameTensors
 from ..utils.metrics import timer
+from .mv_pred import MotionContext
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(os.path.dirname(_PKG), "native")
@@ -176,12 +178,15 @@ def _ptr(a: np.ndarray) -> c_void_p:
 
 
 class NativeFrameState:
-    """Per-frame buffers shared by the native engine across slices.
-    `metrics` (a DecodeMetrics or None) times each engine call as
-    `entropy_native`, on the thread that makes it."""
+    """Per-frame buffers shared by the native engine across slices: the
+    FrameTensors, motion context and intra mode grid it decodes into, side
+    buffers of its own (decode order, PCM samples) and the _FrameBuffers
+    struct that points at all of them, built once. reset() makes the
+    whole set read as a fresh one, so FramePool reuses it. `metrics` (a
+    DecodeMetrics or None) times each engine call as `entropy_native`, on
+    the thread that makes it."""
 
-    def __init__(self, ft, motion, intra_mode_grid, pool: dict | None = None,
-                 bit_depth: int = 8, metrics=None):
+    def __init__(self, ft, motion, intra_mode_grid, bit_depth: int = 8, metrics=None):
         self.ft = ft
         self.metrics = metrics
         self.motion = motion
@@ -194,25 +199,14 @@ class NativeFrameState:
         self._pcm_ch = ft.ch_mb_h
         self._pcm_cw = 16 if ft.chroma_format == 3 else 8
         self._pcm_dtype = np.uint16 if bit_depth > 8 else np.uint8
-        # side buffers the engine writes into; reusable across frames via
-        # `pool` (keyed by geometry) because finish() copies PCM regions out
-        # per frame and only ever reads regions the engine just wrote
-        key = (ft.mb_h, ft.mb_w, ft.chroma_format, self._pcm_dtype)
-        bufs = pool.get(key) if pool is not None else None
-        if bufs is None:
-            bufs = (
-                np.zeros(n, np.int32),
-                np.zeros(1, np.int32),
-                np.zeros((ft.mb_h * 16, ft.mb_w * 16), self._pcm_dtype),
-                np.zeros((ft.mb_h * self._pcm_ch, ft.mb_w * self._pcm_cw),
-                         self._pcm_dtype),
-                np.zeros((ft.mb_h * self._pcm_ch, ft.mb_w * self._pcm_cw),
-                         self._pcm_dtype),
-            )
-            if pool is not None:
-                pool[key] = bufs
-        (self.decode_order, self.n_decoded,
-         self.pcm_y, self.pcm_cb, self.pcm_cr) = bufs
+        # side buffers the engine writes into; finish() copies the PCM
+        # regions out and reset() clears them
+        self.decode_order = np.zeros(n, np.int32)
+        self.n_decoded = np.zeros(1, np.int32)
+        self.pcm_y = np.zeros((ft.mb_h * 16, ft.mb_w * 16), self._pcm_dtype)
+        self.pcm_cb = np.zeros((ft.mb_h * self._pcm_ch, ft.mb_w * self._pcm_cw),
+                               self._pcm_dtype)
+        self.pcm_cr = np.zeros_like(self.pcm_cb)
         fb = _FrameBuffers()
         fb.mb_class = _ptr(ft.mb_class)
         fb.transform8x8 = _ptr(ft.transform_8x8)
@@ -258,6 +252,27 @@ class NativeFrameState:
         self.fb = fb
         self._keepalive = []
         self._par_orders: list[tuple[np.ndarray, np.ndarray]] = []
+        self._mono = False
+
+    def reset(self) -> None:
+        """Return every buffer of the set to its fresh value in place (the
+        FrameTensors as far as its `coded` rows reach): the engine then
+        reads the set as a newly made one."""
+        ft, ch, cw = self.ft, self._pcm_ch, self._pcm_cw
+        for addr in ft.pcm_samples:  # the regions the engine wrote
+            mbx, mby = ft.mb_xy(addr)
+            self.pcm_y[mby * 16 : mby * 16 + 16, mbx * 16 : mbx * 16 + 16] = 0
+            self.pcm_cb[mby * ch : (mby + 1) * ch, mbx * cw : (mbx + 1) * cw] = 0
+            self.pcm_cr[mby * ch : (mby + 1) * ch, mbx * cw : (mbx + 1) * cw] = 0
+        self.decode_order[...] = 0
+        self.n_decoded[0] = 0
+        inter = bool(((ft.mb_class >= MB_P) & (ft.mb_class <= MB_B_DIRECT)).any())
+        ft.reset(inter)
+        self.motion.reset(inter)
+        self.modes[...] = -1
+        self._keepalive.clear()
+        self._par_orders.clear()
+        self._mono = False
 
     def parallel_fb(self) -> "_FrameBuffers":
         """A per-slice _FrameBuffers clone whose decode_order/n_decoded
@@ -289,14 +304,12 @@ class NativeFrameState:
         cnt = int(self.n_decoded[0])
         ft.decode_order.extend(self.decode_order[:cnt].tolist())
         self.n_decoded[0] = 0
-        from ..tensors.frame_tensors import MB_I_PCM
-
         ch, cw = self._pcm_ch, self._pcm_cw
         mono = np.zeros((8, 8), self._pcm_dtype)
         for addr in np.nonzero(ft.mb_class == MB_I_PCM)[0]:
             mbx, mby = ft.mb_xy(int(addr))
             y = self.pcm_y[mby * 16 : mby * 16 + 16, mbx * 16 : mbx * 16 + 16].copy()
-            if getattr(self, "_mono", False):
+            if self._mono:
                 cb, cr = mono, mono
             else:
                 cb = self.pcm_cb[mby * ch : (mby + 1) * ch,
@@ -306,11 +319,63 @@ class NativeFrameState:
             ft.pcm_samples[int(addr)] = (y, cb, cr)
 
 
+class FramePool:
+    """A decoder's NativeFrameStates (each with its FrameTensors, motion
+    context and mode grid), reused across pictures of one geometry. take()
+    hands out an idle state, or a new one when none is idle: the pool grows
+    rather than blocks, to as many states as were held at once. give(ft)
+    takes back the state of `ft` once nothing reads it any more, resets it
+    on the calling thread and keeps it. Only the geometry last taken is
+    kept. take() and give() may run on different threads."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._key = None
+        self._idle: list[NativeFrameState] = []
+        self._out: dict[int, tuple[tuple, NativeFrameState]] = {}  # id(ft) ->
+
+    def take(self, mb_h: int, mb_w: int, chroma_format: int, bit_depth: int,
+             metrics=None) -> NativeFrameState:
+        key = (mb_h, mb_w, chroma_format, bit_depth)
+        with self._lock:
+            if key != self._key:
+                self._key = key
+                self._idle.clear()
+            state = self._idle.pop() if self._idle else None
+        if state is None:
+            ft = FrameTensors(mb_w=mb_w, mb_h=mb_h, chroma_format=chroma_format)
+            state = NativeFrameState(ft, MotionContext(mb_w, mb_h, ft.slice_id),
+                                     np.full((mb_h * 4, mb_w * 4), -1, np.int8),
+                                     bit_depth=bit_depth)
+        state.metrics = metrics
+        with self._lock:
+            self._out[id(state.ft)] = (key, state)
+        return state
+
+    def give(self, ft) -> None:
+        """Reset and keep the state of `ft` (a no-op for a FrameTensors
+        this pool did not hand out, or forgot)."""
+        with self._lock:
+            key, state = self._out.pop(id(ft), (None, None))
+        if state is None:
+            return
+        state.reset()
+        with self._lock:
+            if key == self._key:
+                self._idle.append(state)
+
+    def forget(self) -> None:
+        """Keep none of the states handed out so far: after a picture
+        failed, a slice thread may still write its buffers."""
+        with self._lock:
+            self._out.clear()
+
+
 def supported(sps, pps, hdr) -> bool:
     return (
         # PCM buffers are sized by ONE dtype; unequal luma/chroma depths
         # (spec-legal but unseen in practice) route to the Python engine so
-        # a hostile depth combination can never out-write the PCM pool.
+        # a hostile depth combination can never out-write the PCM buffers.
         # Depth range itself is validated at SPS parse (8..14).
         (
             sps.chroma_array_type == 0
@@ -407,10 +472,10 @@ def decode_slice_native(
         p.col_top_poc = int(direct_ctx.col_top_poc or 0)
         p.col_bottom_poc = int(direct_ctx.col_bottom_poc or 0)
         p.spatial_direct = int(direct_ctx.spatial)
+        # the colocated arrays pass as they are when they already have the
+        # engine's dtype and layout (colocated_motion makes them so)
         if direct_ctx.col_mb_field is not None:
-            cmf = np.ascontiguousarray(
-                direct_ctx.col_mb_field.astype(np.uint8)
-            )
+            cmf = np.ascontiguousarray(direct_ctx.col_mb_field, np.uint8)
             ka.append(cmf)
             p.col_mb_field = c_void_p(cmf.ctypes.data)
         l0_pocs = np.asarray(direct_ctx.l0_pocs or [0], np.int32)
@@ -434,9 +499,7 @@ def decode_slice_native(
             p.cur_top_poc = int(cf[0])
             p.cur_bottom_poc = int(cf[1])
         if direct_ctx.col_ref_parity is not None:
-            crp = np.ascontiguousarray(
-                direct_ctx.col_ref_parity.astype(np.int8)
-            )
+            crp = np.ascontiguousarray(direct_ctx.col_ref_parity, np.int8)
             ka.append(crp)
             p.col_ref_parity = c_void_p(crp.ctypes.data)
         if direct_ctx.col_mv is not None:

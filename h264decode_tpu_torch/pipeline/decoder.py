@@ -18,6 +18,7 @@ import os
 import numpy as np
 
 from ..bitstream.annexb import iter_nalus, iter_nalus_chunks
+from ..entropy import native as native_mod
 from ..entropy.cavlc_slice import CavlcSliceDecoder
 from ..entropy.direct import DirectContext
 from ..entropy.mv_pred import MotionContext
@@ -171,6 +172,8 @@ class Decoder:
         self._pending_recovery = None  # recovery-point SEI awaiting its AU
         self._first_field = None  # PAFF: decoded field awaiting its pair
         self.max_pending = 0  # high-water mark of the output reorder buffer
+        # the engine's per-picture host buffers, reused per geometry
+        self._frames = native_mod.FramePool()
 
     def decode_stream(self, data: bytes) -> list[DecodedFrame]:
         return list(self.decode_iter(data))
@@ -300,6 +303,7 @@ class Decoder:
                     try:
                         f = self._finish_picture()
                     except Exception:
+                        self._frames.forget()
                         if self.error_policy == "strict":
                             raise
                         self.error_count += 1
@@ -314,6 +318,7 @@ class Decoder:
             try:
                 f = self._finish_picture()
             except Exception:
+                self._frames.forget()
                 if self.error_policy == "strict":
                     raise
                 self.error_count += 1
@@ -334,9 +339,13 @@ class Decoder:
         worker thread so the (serial, host-bound) entropy decode of picture
         N+1 overlaps the host prep + device dispatch of picture N — the
         slice-wavefront pipelining of SURVEY.md section 7.3. Returns
-        (y, cb, cr): numpy arrays or lazy plane objects."""
-        return self._reconstruct(ft, sps, pps, slices, ref_lists,
-                                 weight_ctx, poc)
+        (y, cb, cr): numpy arrays or lazy plane objects. Here nothing reads
+        `ft` once _reconstruct returns, so its buffers go back to the pool."""
+        try:
+            return self._reconstruct(ft, sps, pps, slices, ref_lists,
+                                     weight_ctx, poc)
+        finally:
+            self._frames.give(ft)
 
     def _drain_recon(self):
         """Wait for any asynchronous reconstruction work (hook)."""
@@ -398,35 +407,30 @@ class Decoder:
         mb_h_pic = (
             sps.pic_height_in_map_units if field else sps.frame_height_in_mbs
         )
+        mb_w = sps.pic_width_in_mbs
         cf = sps.chroma_array_type
-        ft = FrameTensors(
-            mb_w=sps.pic_width_in_mbs,
-            mb_h=mb_h_pic,
-            chroma_format=cf if cf in (2, 3) else 1,
-        )
-        ft.mbaff = bool(hdr0.mbaff_frame_flag)
-        ft.field_pic = field
-        ft.cur_field_pocs = self.poc_ctx.last_field_pocs
-        intra_mode_grid = np.full((ft.mb_h * 4, ft.mb_w * 4), -1, np.int8)
-        motion = MotionContext(ft.mb_w, ft.mb_h, ft.slice_id)
-        ref_lists: list[tuple[list[Picture], list[Picture]]] = []
-        weight_ctx: list[tuple[bool, object]] = []
-        from ..entropy import native as native_mod
-
+        cf = cf if cf in (2, 3) else 1
         use_native = native_mod.native_available() and all(
             native_mod.supported(s, p, h) for h, s, p, _ in slices
         )
-        if not hasattr(self, "_native_pool"):
-            self._native_pool = {}
-        native_state = (
-            native_mod.NativeFrameState(
-                ft, motion, intra_mode_grid, pool=self._native_pool,
-                bit_depth=max(sps.bit_depth_luma, sps.bit_depth_chroma),
+        if use_native:
+            # a clean set of the engine's buffers from the pool
+            native_state = self._frames.take(
+                mb_h_pic, mb_w, cf, max(sps.bit_depth_luma, sps.bit_depth_chroma),
                 metrics=self.metrics,
             )
-            if use_native
-            else None
-        )
+            ft, motion = native_state.ft, native_state.motion
+            intra_mode_grid = native_state.modes
+        else:
+            native_state = None
+            ft = FrameTensors(mb_w=mb_w, mb_h=mb_h_pic, chroma_format=cf)
+            intra_mode_grid = np.full((ft.mb_h * 4, ft.mb_w * 4), -1, np.int8)
+            motion = MotionContext(ft.mb_w, ft.mb_h, ft.slice_id)
+        ft.mbaff = bool(hdr0.mbaff_frame_flag)
+        ft.field_pic = field
+        ft.cur_field_pocs = self.poc_ctx.last_field_pocs
+        ref_lists: list[tuple[list[Picture], list[Picture]]] = []
+        weight_ctx: list[tuple[bool, object]] = []
         setup.end()
         entropy = span(self.metrics, "entropy")
         entropy.start()
@@ -544,6 +548,13 @@ class Decoder:
         if self.metrics is not None:
             self.metrics.count("frames")
             self.metrics.count("mbs", ft.n_mbs)
+        # colocated motion for later B pictures' direct prediction, read
+        # only through a reference picture (RefPicList1[0])
+        col = self.dpb.colocated(ft, motion) if hdr0.nal_ref_idc else {}
+        # the hand-off: from here the reconstruction owns ft and the rest
+        # of the picture's buffers (with GpuDecoder, its recon worker, once
+        # the wire is built), and returns them to self._frames when it is
+        # done; this thread reads none of them after the call
         finish.pause()
         y, cb, cr = self._submit_reconstruct(
             ft, sps, pps, slices, ref_lists, weight_ctx, poc
@@ -560,40 +571,7 @@ class Decoder:
             parity=int(hdr0.bottom_field_flag) if field else -1,
             top_poc=top_poc,
             bottom_poc=bottom_poc,
-        )
-        if ft.mb_field.any():
-            pic.col_mb_field = ft.mb_field.copy()
-        # colocated motion for future B direct derivation (8.4.1.2.1):
-        # prefer L0; fall back to L1; intra/none -> -1
-        use_l0 = motion.ref[0] >= 0
-        use_l1 = (~use_l0) & (motion.ref[1] >= 0)
-        pic.col_ref_idx = np.where(
-            use_l0, motion.ref[0], np.where(use_l1, motion.ref[1], -1)
-        ).astype(np.int8)
-        pic.col_mv = np.where(
-            use_l0[..., None], motion.mv[0], np.where(use_l1[..., None], motion.mv[1], 0)
-        ).astype(np.int32)
-        # per-part colocated picture uid (prefer L0), vectorized: parts are
-        # 2x2 8x8 blocks in raster order within each MB
-        rp = ft.ref_pic  # [n, 2, 4]
-        sel = np.where(rp[:, 0, :] >= 0, rp[:, 0, :], rp[:, 1, :])  # [n, 4]
-        part_grid = (
-            sel.reshape(ft.mb_h, ft.mb_w, 2, 2)
-            .transpose(0, 2, 1, 3)
-            .reshape(ft.mb_h * 2, ft.mb_w * 2)
-        )
-        pic.col_ref_uid = (
-            part_grid.repeat(2, axis=0).repeat(2, axis=1).astype(np.int32)
-        )
-        rpar = ft.ref_parity  # [n, 2, 4]
-        sel_par = np.where(rp[:, 0, :] >= 0, rpar[:, 0, :], rpar[:, 1, :])
-        pic.col_ref_parity = (
-            sel_par.reshape(ft.mb_h, ft.mb_w, 2, 2)
-            .transpose(0, 2, 1, 3)
-            .reshape(ft.mb_h * 2, ft.mb_w * 2)
-            .repeat(2, axis=0)
-            .repeat(2, axis=1)
-            .astype(np.int8)
+            **col,
         )
         self.uid_counter += 1
         if hdr0.nal_ref_idc:

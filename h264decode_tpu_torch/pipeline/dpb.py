@@ -73,6 +73,67 @@ class Picture:
         return f
 
 
+# the colocated arrays of every reference picture: (name, dtype, trailing shape)
+_COL_ARRAYS = (("col_ref_idx", np.int8, ()), ("col_mv", np.int32, (2,)),
+               ("col_ref_uid", np.int32, ()))
+
+
+def colocated_motion(ft, motion, out: dict) -> dict:
+    """The colocated-motion arrays of a decoded reference picture (spec
+    8.4.1.2.1), by their Picture field names: `out`'s arrays of
+    _COL_ARRAYS, each written straight into the dtype and layout the
+    entropy engine takes, with no copy after. Per 4x4 cell the L0 motion
+    where L0 has a vector, else L1's, else none (refIdxCol -1, mvCol 0);
+    per 8x8 part the referenced picture's uid, L0's where L0 is used.
+    col_mb_field and the referenced field parities (col_ref_parity) only
+    for a picture with field MBs: a later slice reads the parity only at a
+    field MB of its colocated picture. Only a reference picture can be
+    RefPicList1[0] of a later B slice, the one reader of these arrays."""
+    ref0, ref1 = motion.ref
+    has0 = ref0 >= 0
+    ri = out["col_ref_idx"]
+    np.maximum(ref1, -1, out=ri)  # L1's, or -1 (from -1 or -2) for none
+    np.copyto(ri, ref0, where=has0)
+    # a cell's (x, y) pair as one 64-bit word: one mask selects both
+    w0, w1 = motion.mv.view(np.int64)[..., 0]
+    mv = out["col_mv"].view(np.int64)[..., 0]
+    np.copyto(mv, w1)
+    np.copyto(mv, w0, where=has0)
+    mv[ri < 0] = 0
+    # per 8x8 part: all ones where L0 refers to no picture
+    none0 = ft.ref_pic.reshape(-1)[:-4] >> 31
+    _parts_to_cells(_l0_else_l1(ft.ref_pic, none0), ft, out["col_ref_uid"])
+    out["col_mb_field"] = out["col_ref_parity"] = None
+    if ft.mb_field.any():
+        out["col_mb_field"] = ft.mb_field.astype(np.uint8)
+        out["col_ref_parity"] = _parts_to_cells(
+            _l0_else_l1(ft.ref_parity, none0.astype(np.int8)), ft,
+            np.empty(ref0.shape, np.int8))
+    return out
+
+
+def _l0_else_l1(per_list: np.ndarray, none0: np.ndarray) -> np.ndarray:
+    """[nMB, 2, 4] per-list values of the 8x8 parts -> [nMB, 4]: L0's, or
+    L1's where none0 (all ones, per_list's dtype) is set. Bitwise over the
+    flat array, where each part's L1 entry lies 4 after its L0 one: a
+    [nMB, 4] view would make numpy loop over 4 values at a time."""
+    flat = per_list.reshape(-1)
+    out = np.empty_like(flat)
+    np.bitwise_or(flat[:-4] & ~none0, flat[4:] & none0, out=out[:-4])
+    return out.reshape(-1, 8)[:, :4]
+
+
+def _parts_to_cells(parts: np.ndarray, ft, out: np.ndarray) -> np.ndarray:
+    """[nMB, 4] per-8x8-part values (raster in the MB) -> `out`, the
+    [4h, 4w] cell grid, each part's value in its 2x2 cells."""
+    mb_h, mb_w = ft.mb_h, ft.mb_w
+    rows = out.reshape(mb_h, 2, 2, mb_w * 2, 2)  # [mby, part y, cell y, part x, cell x]
+    rows[:, :, 0] = parts.reshape(mb_h, mb_w, 2, 2).transpose(0, 2, 1, 3).reshape(
+        mb_h, 2, mb_w * 2)[..., None]
+    rows[:, :, 1] = rows[:, :, 0]
+    return out
+
+
 class POCContext:
     """PicOrderCnt derivation, spec 8.2.1 (types 0, 1 and 2)."""
 
@@ -164,6 +225,26 @@ class DPB:
         self.sps = sps
         self.pictures: list[Picture] = []
         self.max_long_term_idx = -1  # MaxLongTermFrameIdx (-1 = no long term)
+        # colocated arrays made by colocated(), reused once no picture in
+        # the DPB holds them
+        self._col_sets: list[dict] = []
+
+    def colocated(self, ft, motion) -> dict:
+        """colocated_motion of the picture just decoded, written into the
+        arrays of a picture that has left the DPB when one of its geometry
+        has: no later slice reads those (a colocated picture is a
+        RefPicList1[0], which the DPB holds), and reused memory spares the
+        page faults of new arrays."""
+        held = {id(p.col_ref_idx) for p in self.pictures}
+        shape = motion.ref.shape[1:]
+        for arrays in self._col_sets:
+            ri = arrays["col_ref_idx"]
+            if id(ri) not in held and ri.shape == shape:
+                break
+        else:
+            arrays = {name: np.empty(shape + tail, dt) for name, dt, tail in _COL_ARRAYS}
+            self._col_sets.append(arrays)
+        return colocated_motion(ft, motion, dict(arrays))
 
     def clear(self):
         self.pictures.clear()

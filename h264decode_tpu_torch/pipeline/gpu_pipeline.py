@@ -744,6 +744,11 @@ class GpuDecoder(Decoder):
                 or (sps.chroma_array_type == 3 and sps.bit_depth_luma > 8))
 
     def _submit_reconstruct(self, ft, sps, pps, slices, ref_lists, weight_ctx, poc):
+        # from here the recon worker owns ft and the picture's other host
+        # buffers (Decoder._finish_picture reads none of them after this
+        # call): _recon_task returns them to self._frames once _reconstruct
+        # has built and staged the wire (or the oracle has run), clearing
+        # them there, and the main thread takes only clean sets
         if self._recon_exec is None:
             raise RuntimeError("GpuDecoder: decoding after close()")
         cur_uid = self.uid_counter  # snapshot: main increments it right after
@@ -760,8 +765,11 @@ class GpuDecoder(Decoder):
         ctx = (torch.cuda.device(self.device) if self.device.type == "cuda"
                else contextlib.nullcontext())
         with ctx, timer(self.metrics, "prep"):
-            return self._reconstruct(ft, sps, pps, slices, ref_lists, weight_ctx, poc,
-                                     cur_uid=cur_uid)
+            try:
+                return self._reconstruct(ft, sps, pps, slices, ref_lists, weight_ctx, poc,
+                                         cur_uid=cur_uid)
+            finally:
+                self._frames.give(ft)
 
     def _drain_recon(self):
         while self._recon_pending:
@@ -1018,6 +1026,11 @@ class GpuDecoder(Decoder):
                 sparse = False
                 break
             sp_idx[key] = idx
+        # the rows the reset clears: a sparse frame's coded ones, and no
+        # luma8_ac row for a picture without 8x8 transforms
+        ft.coded = dict(sp_idx) if sparse else {}
+        if not has_l8:
+            ft.coded["l8"] = np.zeros(0, np.int64)
         wire: dict[str, np.ndarray] = {}
 
         def narrow(a):

@@ -150,6 +150,10 @@ class FrameTensors:
     pcm_samples: dict = field(default_factory=dict)
     # MB addresses in bitstream decode order (differs from raster under FMO)
     decode_order: list = field(default_factory=list)
+    # the rows of the residual arrays that can hold a level, by key of
+    # _CODED_ROWS, as the wire build found them (GpuDecoder): reset()
+    # clears only these rows of the arrays it names, fills the rest
+    coded: dict | None = None
 
     # bookkeeping used during entropy decode (total_coeff for CAVLC nC,
     # coded_block_flag for CABAC contexts) and deblock strength derivation
@@ -157,74 +161,84 @@ class FrameTensors:
     chroma_nnz: np.ndarray = None  # [2, mb_h*2, mb_w*2] int8
     cbf_dc: np.ndarray = None  # [nMB, 3] int8: luma/cb/cr DC coded_block_flag
 
-    def __post_init__(self):
-        n = self.mb_w * self.mb_h
-        if self.mb_class is None:
-            self.mb_class = np.full(n, -1, np.int8)
-        if self.transform_8x8 is None:
-            self.transform_8x8 = np.zeros(n, bool)
-        if self.qp is None:
-            self.qp = np.zeros(n, np.int8)
-        if self.cbp is None:
-            self.cbp = np.zeros(n, np.uint8)
-        if self.intra4x4_modes is None:
-            self.intra4x4_modes = np.full((n, 16), 2, np.int8)  # default DC
-        if self.intra16_mode is None:
-            self.intra16_mode = np.full(n, -1, np.int8)
-        if self.chroma_mode is None:
-            self.chroma_mode = np.zeros(n, np.int8)
-        if self.luma_ac is None:
-            self.luma_ac = np.zeros((n, 16, 16), np.int16)
-        if self.luma_dc is None:
-            self.luma_dc = np.zeros((n, 16), np.int16)
-        if self.chroma_dc is None:
-            self.chroma_dc = np.zeros((n, 2, self.ch_dc_n), np.int16)
-        if self.chroma_ac is None:
-            self.chroma_ac = np.zeros((n, 2, self.ch_blks, 16), np.int16)
-        if self.mv is None:
-            self.mv = np.zeros((n, 2, 16, 2), np.int16)
-        if self.ref_idx is None:
-            self.ref_idx = np.full((n, 2, 4), -1, np.int8)
-        if self.pred_flags is None:
-            self.pred_flags = np.zeros((n, 2, 4), np.uint8)
-        if self.ref_pic is None:
-            self.ref_pic = np.full((n, 2, 4), -1, np.int32)
-        if self.ref_parity is None:
-            self.ref_parity = np.full((n, 2, 4), -1, np.int8)
-        if self.mb_field is None:
-            self.mb_field = np.zeros(n, bool)
-        if self.slice_id is None:
-            self.slice_id = np.full(n, -1, np.int32)
-        if self.sp_slice_mb is None:
-            self.sp_slice_mb = np.zeros(n, bool)
-        if self.disable_deblock is None:
-            self.disable_deblock = np.zeros(n, np.int8)
-        if self.alpha_off is None:
-            self.alpha_off = np.zeros(n, np.int8)
-        if self.beta_off is None:
-            self.beta_off = np.zeros(n, np.int8)
-        if self.cbf_dc is None:
-            self.cbf_dc = np.zeros((n, 3), np.int8)
-        if self.luma_nnz is None:
-            self.luma_nnz = np.zeros((self.mb_h * 4, self.mb_w * 4), np.int8)
+    # the wire build's sparse index (pipeline/gpu_pipeline.py): key ->
+    # (array, values in a row of it), the rows as _coded_block_masks finds
+    # the ones that can hold a nonzero level
+    _CODED_ROWS = {"l": ("luma_ac", 16), "c": ("chroma_ac", 16),
+                   "ld": ("luma_dc", 16), "l8": ("luma8_ac", 64)}
+
+    def _layout(self) -> list:
+        """(name, shape, dtype, fresh value) of every array this class
+        makes; the lazy 8x8 arrays (ensure_luma8, ensure_c444_8x8) last."""
+        n, h4, w4 = self.n_mbs, self.mb_h * 4, self.mb_w * 4
+        out = [
+            ("mb_class", (n,), np.int8, -1),
+            ("transform_8x8", (n,), bool, 0),
+            ("qp", (n,), np.int8, 0),
+            ("cbp", (n,), np.uint8, 0),
+            ("intra4x4_modes", (n, 16), np.int8, 2),  # default DC
+            ("intra16_mode", (n,), np.int8, -1),
+            ("chroma_mode", (n,), np.int8, 0),
+            ("luma_ac", (n, 16, 16), np.int16, 0),
+            ("luma_dc", (n, 16), np.int16, 0),
+            ("chroma_dc", (n, 2, self.ch_dc_n), np.int16, 0),
+            ("chroma_ac", (n, 2, self.ch_blks, 16), np.int16, 0),
+            ("mv", (n, 2, 16, 2), np.int16, 0),
+            ("ref_idx", (n, 2, 4), np.int8, -1),
+            ("pred_flags", (n, 2, 4), np.uint8, 0),
+            ("ref_pic", (n, 2, 4), np.int32, -1),
+            ("ref_parity", (n, 2, 4), np.int8, -1),
+            ("mb_field", (n,), bool, 0),
+            ("slice_id", (n,), np.int32, -1),
+            ("sp_slice_mb", (n,), bool, 0),
+            ("disable_deblock", (n,), np.int8, 0),
+            ("alpha_off", (n,), np.int8, 0),
+            ("beta_off", (n,), np.int8, 0),
+            ("cbf_dc", (n, 3), np.int8, 0),
+            ("luma_nnz", (h4, w4), np.int8, 0),
+        ]
         if self.chroma_format == 3:
-            if self.c444_dc is None:
-                self.c444_dc = np.zeros((n, 2, 16), np.int16)
-            if self.c444_ac is None:
-                self.c444_ac = np.zeros((n, 2, 16, 16), np.int16)
-            if self.c444_nnz is None:
-                self.c444_nnz = np.zeros(
-                    (2, self.mb_h * 4, self.mb_w * 4), np.int8
-                )
+            out += [
+                ("c444_dc", (n, 2, 16), np.int16, 0),
+                ("c444_ac", (n, 2, 16, 16), np.int16, 0),
+                ("c444_nnz", (2, h4, w4), np.int8, 0),
+            ]
         # NOTE: for chroma_format 3 the c444_* grids above are the
         # authoritative chroma storage; chroma_dc/chroma_ac/chroma_nnz are
         # still allocated (generic skip/PCM paths touch them) but their
         # contents are DEAD for 4:4:4 — reconstruction and deblocking read
         # only c444_*.
-        if self.chroma_nnz is None:
-            self.chroma_nnz = np.zeros(
-                (2, self.mb_h * self.ch_rows, self.mb_w * 2), np.int8
-            )
+        out.append(("chroma_nnz", (2, self.mb_h * self.ch_rows, self.mb_w * 2), np.int8, 0))
+        out.append(("luma8_ac", (n, 4, 64), np.int16, 0))
+        out.append(("c444_8x8", (n, 2, 4, 64), np.int16, 0))
+        return out
+
+    def __post_init__(self):
+        for name, shape, dtype, value in self._layout()[:-2]:
+            if getattr(self, name) is None:
+                setattr(self, name, np.zeros(shape, dtype) if value == 0
+                        else np.full(shape, value, dtype))
+
+    def reset(self, inter: bool = True) -> None:
+        """Return every array to its fresh value in place and empty the PCM
+        samples and the decode order: the entropy engine then reads this
+        FrameTensors as a freshly made one. The arrays that `coded` covers
+        are cleared at its rows only, the rest filled whole. inter=False:
+        no MB was inter predicted, so no motion vector was written."""
+        rows = {name: (key, width) for key, (name, width) in self._CODED_ROWS.items()}
+        coded = self.coded or {}
+        for name, _, _, value in self._layout():
+            a = getattr(self, name)
+            if a is None or (name == "mv" and not inter):
+                continue
+            key, width = rows.get(name, (None, 0))
+            if key in coded:
+                a.reshape(-1, width)[coded[key]] = 0
+            else:
+                a[...] = value
+        self.pcm_samples = {}
+        self.decode_order = []
+        self.coded = None
 
     @property
     def n_mbs(self) -> int:

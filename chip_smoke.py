@@ -26,7 +26,9 @@ every phase runs, and step 1 always does:
    it); the 3-plane kernels are timed beside a graph of three single-plane
    calls. Plain versions: events around the one call whose output is
    compared (an intra call takes about 20 s a plane).
-3. The main path, stream by stream, through GpuDecoder (launch counters
+3. The main path: first the host's core counts (os.cpu_count() and the
+   cores this process may run on), which bound how many pictures' entropy
+   decodes run at once; then, stream by stream, through GpuDecoder (launch counters
    set to 0 just before, read just after; every kernel of the stream's
    format must have launched, each exactly one device kernel (a persistent
    row wavefront) per call, a 4:4:4 stream no chroma kernel at all, and the
@@ -1305,6 +1307,11 @@ def main(argv=None) -> int:
                 kernels.update(rows)
         log(f"kernel phases done at {time.time() - t0:.1f} s")
     if "main" in phases:
+        # the cores the pictures' entropy tasks and slice calls share
+        cores = {"cpu_count": os.cpu_count(), "sched_getaffinity": len(os.sched_getaffinity(0))}
+        log(f"host cores: os.cpu_count() {cores['cpu_count']}, "
+            f"len(os.sched_getaffinity(0)) {cores['sched_getaffinity']}")
+        table["host_cores"] = cores
         paths = {}
         for name, suffix, traced in STREAMS:
             mp = paths[name] = main_path(dev, name, want[name], traced)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 
 import os
+from concurrent.futures import Future, ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 
@@ -32,7 +34,7 @@ from ..syntax.sps import SPS, parse_sps
 from ..tensors.frame_tensors import FrameTensors
 from ..utils.metrics import span, timer
 from .deblock import deblock_frame
-from .dpb import DPB, Picture, POCContext
+from .dpb import DPB, Picture, POCContext, fill_colocated
 from .intra_frame import IntraFrameReconstructor
 
 
@@ -332,15 +334,26 @@ class Decoder:
         pending.sort(key=lambda f: f.poc)
         yield from pending
 
+    def _submit_entropy(self, task, native: bool) -> None:
+        """Entropy dispatch hook. `task` is one picture's entropy decode
+        (_decode_entropy with its arguments bound): it sets the result or
+        the exception of the picture's `decoded` future and raises what
+        failed. The base decoder runs it here, on the decoding thread;
+        GpuDecoder overrides this to run the pictures that decode on the
+        native engine (`native`) on worker threads, several at once."""
+        task()
+
     def _submit_reconstruct(self, ft, sps, pps, slices, ref_lists,
-                            weight_ctx, poc):
+                            weight_ctx, poc, decoded):
         """Reconstruction dispatch hook. The base decoder reconstructs
         synchronously; TpuDecoder overrides this to run reconstruction on a
         worker thread so the (serial, host-bound) entropy decode of picture
         N+1 overlaps the host prep + device dispatch of picture N — the
-        slice-wavefront pipelining of SURVEY.md section 7.3. Returns
-        (y, cb, cr): numpy arrays or lazy plane objects. Here nothing reads
-        `ft` once _reconstruct returns, so its buffers go back to the pool."""
+        slice-wavefront pipelining of SURVEY.md section 7.3. `decoded` is
+        the picture's entropy task (a Future), done here since the base
+        decoder runs it inline. Returns (y, cb, cr): numpy arrays or lazy
+        plane objects. Here nothing reads `ft` once _reconstruct returns,
+        so its buffers go back to the pool."""
         try:
             return self._reconstruct(ft, sps, pps, slices, ref_lists,
                                      weight_ctx, poc)
@@ -349,6 +362,54 @@ class Decoder:
 
     def _drain_recon(self):
         """Wait for any asynchronous reconstruction work (hook)."""
+
+    def _slice_pool(self) -> ThreadPoolExecutor:
+        """The threads that run a multi-slice picture's engine calls, made
+        on first use (on the decoding thread). Its tasks are engine calls
+        alone, which wait for nothing, so it cannot deadlock however many
+        pictures' tasks wait on it."""
+        ex = getattr(self, "_slice_exec", None)
+        if ex is None:
+            ex = ThreadPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 4),
+                thread_name_prefix="h264slice",
+            )
+            self._slice_exec = ex
+        return ex
+
+    def _decode_entropy(self, pic, calls, native_state, slice_exec, colocated,
+                        ft, motion) -> None:
+        """One picture's entropy decode, the task _submit_entropy runs: once
+        the colocated pictures of its B slices are decoded, their colocated
+        arrays go to the slices' DirectContexts; then the engine calls (on
+        slice_exec, concurrently, when given), the native engine's finish
+        and, for a reference picture, its own colocated arrays. Reads no
+        decoder state that the decoding thread changes (the DPB, its
+        marking): that was all read at set-up. Sets pic.decoded; raises
+        what failed."""
+        try:
+            for ctx, col in colocated:
+                if col.decoded is not None:
+                    col.decoded.result()  # raises when that picture failed
+                ctx.col_mv, ctx.col_ref_idx = col.col_mv, col.col_ref_idx
+                ctx.col_ref_uid, ctx.col_mb_field = col.col_ref_uid, col.col_mb_field
+                ctx.col_ref_parity = col.col_ref_parity
+            with timer(self.metrics, "entropy"):
+                if slice_exec is not None:
+                    # map() drains the iterator and re-raises the first failure
+                    list(slice_exec.map(lambda call: call(), calls))
+                else:
+                    for call in calls:
+                        call()
+                if native_state is not None:
+                    native_state.finish()
+            if pic.col_ref_idx is not None:
+                with timer(self.metrics, "colocated"):
+                    fill_colocated(pic, ft, motion)
+        except BaseException as e:
+            pic.decoded.set_exception(e)
+            raise
+        pic.decoded.set_result(None)
 
     def _reconstruct(self, ft, sps, pps, slices, ref_lists, weight_ctx, poc):
         """Pixel reconstruction backend (numpy oracle here; TpuDecoder in
@@ -379,8 +440,9 @@ class Decoder:
         return y, cb, cr
 
     def _finish_picture(self) -> DecodedFrame | None:
-        # picture_setup: entry to the entropy decode; picture_finish: its
-        # end to the return, the hand-off to _submit_reconstruct left out
+        # picture_setup: entry to the hand-off of the entropy decode
+        # (_submit_entropy); picture_finish: from there to the return, the
+        # hand-off to _submit_reconstruct left out
         setup = span(self.metrics, "picture_setup")
         setup.start()
         slices = self._cur
@@ -431,10 +493,10 @@ class Decoder:
         ft.cur_field_pocs = self.poc_ctx.last_field_pocs
         ref_lists: list[tuple[list[Picture], list[Picture]]] = []
         weight_ctx: list[tuple[bool, object]] = []
-        setup.end()
-        entropy = span(self.metrics, "entropy")
-        entropy.start()
-        native_calls = []  # deferred engine calls, dispatched concurrently
+        calls = []  # the picture's engine calls, one a slice, run by its task
+        # (DirectContext, colocated picture) of each B slice: the task binds
+        # the colocated arrays once that picture's own task has made them
+        colocated: list[tuple[DirectContext, Picture]] = []
         for slice_id, (hdr, s_sps, s_pps, r) in enumerate(slices):
             map_units = map_unit_to_slice_group_map(
                 s_sps, s_pps, hdr.slice_group_change_cycle
@@ -450,17 +512,17 @@ class Decoder:
             elif hdr.is_b:
                 l0, l1 = self.dpb.ref_lists_b(hdr, poc)
                 col = l1[0]
+                # the pictures' marking state is read here, before later
+                # pictures mark the DPB; the arrays in the task
                 direct_ctx = DirectContext(
-                    col_mv=col.col_mv,
-                    col_ref_idx=col.col_ref_idx,
-                    col_ref_uid=col.col_ref_uid,
-                    col_ref_parity=col.col_ref_parity,
+                    col_mv=None,
+                    col_ref_idx=None,
+                    col_ref_uid=None,
                     l0_top_pocs=[p.top_poc for p in l0],
                     l0_bottom_pocs=[p.bottom_poc for p in l0],
                     col_is_short_term=not col.long_term,
                     col_poc=col.poc,
                     cur_ft=ft,
-                    col_mb_field=col.col_mb_field,
                     col_top_poc=col.top_poc,
                     col_bottom_poc=col.bottom_poc,
                     l0_uids=[p.uid for p in l0],
@@ -471,6 +533,7 @@ class Decoder:
                     spatial=hdr.direct_spatial_mv_pred_flag,
                     direct_8x8_inference=s_sps.direct_8x8_inference_flag,
                 )
+                colocated.append((direct_ctx, col))
             ref_lists.append((l0, l1))
             if hdr.is_b:
                 wmode = {0: "none", 1: "explicit", 2: "implicit"}[
@@ -482,9 +545,7 @@ class Decoder:
                 wmode = "none"
             weight_ctx.append((wmode, hdr.pred_weight_table))
             if use_native:
-                from functools import partial as _partial
-
-                native_calls.append(_partial(
+                calls.append(partial(
                     native_mod.decode_slice_native,
                     native_state,
                     hdr,
@@ -511,7 +572,9 @@ class Decoder:
                 if s_pps.entropy_coding_mode_flag
                 else CavlcSliceDecoder
             )
-            dec = cls(
+            calls.append(partial(
+                _python_slice,
+                cls,
                 ft,
                 hdr,
                 s_sps,
@@ -524,55 +587,54 @@ class Decoder:
                 ref_uids_l0=[p.uid for p in l0],
                 ref_uids_l1=[p.uid for p in l1],
                 direct_ctx=direct_ctx,
-            )
-            dec.decode()
-        if len(native_calls) > 1:
-            ex = getattr(self, "_slice_exec", None)
-            if ex is None:
-                from concurrent.futures import ThreadPoolExecutor
-
-                ex = ThreadPoolExecutor(
-                    max_workers=min(8, os.cpu_count() or 4),
-                    thread_name_prefix="h264slice",
-                )
-                self._slice_exec = ex
-            # map() drains the iterator and re-raises the first failure
-            list(ex.map(lambda call: call(), native_calls))
-        elif native_calls:
-            native_calls[0]()
-        if native_state is not None:
-            native_state.finish()
-        entropy.end()
-        finish = span(self.metrics, "picture_finish")
-        finish.start()
-        if self.metrics is not None:
-            self.metrics.count("frames")
-            self.metrics.count("mbs", ft.n_mbs)
+            ))
+        decoded = Future()
         # colocated motion for later B pictures' direct prediction, read
-        # only through a reference picture (RefPicList1[0])
-        col = self.dpb.colocated(ft, motion) if hdr0.nal_ref_idc else {}
-        # the hand-off: from here the reconstruction owns ft and the rest
-        # of the picture's buffers (with GpuDecoder, its recon worker, once
-        # the wire is built), and returns them to self._frames when it is
-        # done; this thread reads none of them after the call
-        finish.pause()
-        y, cb, cr = self._submit_reconstruct(
-            ft, sps, pps, slices, ref_lists, weight_ctx, poc
-        )
-        finish.start()
+        # only through a reference picture (RefPicList1[0]): arrays picked
+        # here, filled by the picture's task
+        col_arrays = (self.dpb.colocated_arrays(motion.ref.shape[1:], decoded)
+                      if hdr0.nal_ref_idc else {})
+        for _, c in colocated:
+            self.dpb.hold_colocated(c, decoded)
         top_poc, bottom_poc = self.poc_ctx.last_field_pocs
+        # the planes come from _submit_reconstruct below
         pic = Picture(
-            y=y,
-            cb=cb,
-            cr=cr,
+            y=None,
+            cb=None,
+            cr=None,
             frame_num=hdr0.frame_num,
             poc=poc,
             uid=self.uid_counter,
             parity=int(hdr0.bottom_field_flag) if field else -1,
             top_poc=top_poc,
             bottom_poc=bottom_poc,
-            **col,
+            decoded=decoded,
+            **col_arrays,
         )
+        # the slice threads, started here: the task may run on a worker
+        slice_exec = self._slice_pool() if use_native and len(calls) > 1 else None
+        setup.end()
+        self._submit_entropy(
+            partial(self._decode_entropy, pic, calls, native_state, slice_exec,
+                    colocated, ft, motion),
+            use_native,
+        )
+        finish = span(self.metrics, "picture_finish")
+        finish.start()
+        if self.metrics is not None:
+            self.metrics.count("frames")
+            self.metrics.count("mbs", ft.n_mbs)
+        # the hand-off: from here the reconstruction owns ft and the rest
+        # of the picture's buffers (with GpuDecoder, its recon worker, once
+        # the picture's task has decoded them and the wire is built), and
+        # returns them to self._frames when it is done; this thread reads
+        # none of them after the call
+        finish.pause()
+        y, cb, cr = self._submit_reconstruct(
+            ft, sps, pps, slices, ref_lists, weight_ctx, poc, decoded
+        )
+        finish.start()
+        pic.y, pic.cb, pic.cr = y, cb, cr
         self.uid_counter += 1
         if hdr0.nal_ref_idc:
             self.dpb.mark(pic, hdr0)
@@ -623,6 +685,12 @@ class Decoder:
             self._pending_recovery = None
         finish.end()
         return df
+
+
+def _python_slice(cls, *args, **kw) -> None:
+    """One slice on the Python engine (CavlcSliceDecoder or
+    CabacSliceDecoder)."""
+    cls(*args, **kw).decode()
 
 
 def decode_annexb(data: bytes, apply_deblock: bool = True) -> list[DecodedFrame]:

@@ -8,6 +8,7 @@ ordering. frame_mbs_only streams (no field pairs) for now.
 
 from __future__ import annotations
 
+from concurrent.futures import Future
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -49,6 +50,10 @@ class Picture:
     # MBAFF-field temporal direct maps refIdxCol into the current field
     # list by (frame uid, parity) — spec 8.4.1.2.2/8.4.1.2.3
     col_ref_parity: np.ndarray | None = None  # [4h, 4w] int8
+    # the picture's entropy task (a Future, done once its engine calls, the
+    # engine's finish and its colocated arrays are); None for a picture
+    # that never had one (the gray placeholder of seed_missing_ref)
+    decoded: Future | None = None
 
     def planes(self):
         return self.y, self.cb, self.cr
@@ -110,6 +115,13 @@ def colocated_motion(ft, motion, out: dict) -> dict:
             _l0_else_l1(ft.ref_parity, none0.astype(np.int8)), ft,
             np.empty(ref0.shape, np.int8))
     return out
+
+
+def fill_colocated(pic: Picture, ft, motion) -> None:
+    """colocated_motion of the decoded reference picture `pic` into the
+    arrays DPB.colocated_arrays gave it, and its field arrays onto it."""
+    out = colocated_motion(ft, motion, {name: getattr(pic, name) for name, *_ in _COL_ARRAYS})
+    pic.col_mb_field, pic.col_ref_parity = out["col_mb_field"], out["col_ref_parity"]
 
 
 def _l0_else_l1(per_list: np.ndarray, none0: np.ndarray) -> np.ndarray:
@@ -225,26 +237,41 @@ class DPB:
         self.sps = sps
         self.pictures: list[Picture] = []
         self.max_long_term_idx = -1  # MaxLongTermFrameIdx (-1 = no long term)
-        # colocated arrays made by colocated(), reused once no picture in
-        # the DPB holds them
-        self._col_sets: list[dict] = []
+        # colocated arrays handed out by colocated_arrays(), each set with
+        # the entropy tasks that write or read it (anything with done());
+        # a set is reused once no picture in the DPB holds it and none of
+        # its tasks is in flight
+        self._col_sets: list[tuple[dict, list]] = []
 
-    def colocated(self, ft, motion) -> dict:
-        """colocated_motion of the picture just decoded, written into the
-        arrays of a picture that has left the DPB when one of its geometry
-        has: no later slice reads those (a colocated picture is a
-        RefPicList1[0], which the DPB holds), and reused memory spares the
-        page faults of new arrays."""
+    def colocated_arrays(self, shape: tuple, writer) -> dict:
+        """Arrays for the colocated motion (colocated_motion) of the
+        reference picture being set up, whose entropy task `writer` fills
+        them: a set of `shape` that no picture in the DPB holds and no task
+        in flight writes or reads (hold_colocated), or a new one. Reused
+        memory spares the page faults of new arrays. A B picture in flight
+        may read the set of a picture that marking has since removed from
+        the DPB (an IDR empties it), so the tasks count as holders too.
+        Call on the decoding thread, which alone marks the DPB."""
         held = {id(p.col_ref_idx) for p in self.pictures}
-        shape = motion.ref.shape[1:]
-        for arrays in self._col_sets:
+        for arrays, tasks in self._col_sets:
+            tasks[:] = [t for t in tasks if not t.done()]
             ri = arrays["col_ref_idx"]
-            if id(ri) not in held and ri.shape == shape:
+            if id(ri) not in held and not tasks and ri.shape == shape:
                 break
         else:
             arrays = {name: np.empty(shape + tail, dt) for name, dt, tail in _COL_ARRAYS}
-            self._col_sets.append(arrays)
-        return colocated_motion(ft, motion, dict(arrays))
+            tasks = []
+            self._col_sets.append((arrays, tasks))
+        tasks.append(writer)
+        return dict(arrays)
+
+    def hold_colocated(self, pic: Picture, reader) -> None:
+        """Keep pic's colocated arrays from reuse until `reader` (a later
+        picture's entropy task, with done()) has ended."""
+        for arrays, tasks in self._col_sets:
+            if arrays["col_ref_idx"] is pic.col_ref_idx:
+                tasks.append(reader)
+                return
 
     def clear(self):
         self.pictures.clear()

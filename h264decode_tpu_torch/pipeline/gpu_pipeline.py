@@ -21,8 +21,10 @@ arithmetic on uint16), and the host sees uint16 planes. High-bit-depth
 4:4:4 and mixed luma/chroma depths decode on the host oracle.
 
 The host side (GpuDecoder) drives entropy decoding into FrameTensors,
+each picture's a task on worker threads beside the main thread (several
+pictures at once, a B picture's waiting only for its colocated picture's),
 builds the narrow per-frame wire and, on a worker thread while the main
-thread entropy-decodes the next picture, hands it to the frame program of
+thread sets up the next pictures, hands it to the frame program of
 its signature (pipeline/frame_program.py: on a CUDA device frame_step
 captured once in a CUDA graph per JAX jit signature, its static wire
 buffer filled from one pinned staging buffer, the graph replayed), then
@@ -672,7 +674,9 @@ class GpuDecoder(Decoder):
 
     device: "cuda" (default; raises when no CUDA device exists) or "cpu",
     where the kernel wrappers run their plain torch versions. Pictures are
-    reconstructed on one worker thread, RECON_DEPTH in flight. Call close()
+    reconstructed on one worker thread, RECON_DEPTH in flight; under the
+    strict error policy, the entropy decodes of pictures on the native
+    engine run on worker threads too, up to RECON_DEPTH + 1 at once. Call close()
     (or use `with`) to stop the worker threads; a closed decoder decodes no
     more. The luma intra and deblock kernels trap when a hand-off between
     MB rows stalls for seconds (csrc/wavefront.cuh); a trap is a sticky
@@ -697,17 +701,29 @@ class GpuDecoder(Decoder):
         self._r_w = R_W_DEFAULT
         self._ls_key = None
         self._ls_dev = None
-        # two-stage pipeline: the main thread runs the serial entropy
-        # decode; this single worker runs host prep + device dispatch for
-        # earlier pictures. Ring state, _ring_slots and _r_w are touched
-        # ONLY by the worker, in submission order.
+        # the pipeline: the main thread parses and sets pictures up, in
+        # decode order; each picture on the native engine then decodes its
+        # entropy as a task on _picture_exec (its slices' engine calls on
+        # the per-slice pool), several pictures at once, a B picture's
+        # task waiting for its colocated picture's; this single worker
+        # runs host prep + device dispatch for each picture in decode
+        # order once its task is done. Ring state, _ring_slots and _r_w are
+        # touched ONLY by the worker, in submission order.
         self._recon_exec = ThreadPoolExecutor(max_workers=1,
                                               thread_name_prefix="h264recon")
         self._recon_pending: deque[Future] = deque()
+        # pictures in their entropy decode: at most RECON_DEPTH waiting for
+        # the worker and the one just set up (_submit_reconstruct's
+        # back-pressure), so none queues. A task waits only for tasks
+        # submitted before it, which a FIFO pool has started: the earliest
+        # unfinished task waits for nothing unfinished, so the pool cannot
+        # deadlock, however few threads it had.
+        self._picture_exec = ThreadPoolExecutor(max_workers=RECON_DEPTH + 1,
+                                                thread_name_prefix="h264pic")
 
     def close(self):
-        """Finish pending work, stop the recon worker and the per-slice
-        entropy executor, and return the rings and their programs to the
+        """Finish pending work, stop the recon worker and the picture and
+        per-slice entropy executors, and return the rings and their programs to the
         cache."""
         try:
             self._drain_recon()
@@ -715,6 +731,9 @@ class GpuDecoder(Decoder):
             if self._recon_exec is not None:
                 self._recon_exec.shutdown(wait=True)
                 self._recon_exec = None
+            if self._picture_exec is not None:
+                self._picture_exec.shutdown(wait=True)
+                self._picture_exec = None
             ex = getattr(self, "_slice_exec", None)
             if ex is not None:
                 ex.shutdown(wait=True)
@@ -743,10 +762,24 @@ class GpuDecoder(Decoder):
         return (sps.bit_depth_chroma != sps.bit_depth_luma
                 or (sps.chroma_array_type == 3 and sps.bit_depth_luma > 8))
 
-    def _submit_reconstruct(self, ft, sps, pps, slices, ref_lists, weight_ctx, poc):
+    def _submit_entropy(self, task, native: bool) -> None:
+        # a picture on the Python engine holds the interpreter lock, and a
+        # lenient error policy drops a failed picture before its marking:
+        # both decode here, on the main thread (depth 1); the task of a
+        # Python-engine picture first waits for its colocated pictures'
+        if not native or self.error_policy != "strict":
+            task()
+            return
+        if self._picture_exec is None:
+            raise RuntimeError("GpuDecoder: decoding after close()")
+        self._picture_exec.submit(task)
+
+    def _submit_reconstruct(self, ft, sps, pps, slices, ref_lists, weight_ctx, poc,
+                            decoded):
         # from here the recon worker owns ft and the picture's other host
         # buffers (Decoder._finish_picture reads none of them after this
-        # call): _recon_task returns them to self._frames once _reconstruct
+        # call): _recon_task waits for the picture's entropy task
+        # (`decoded`), then returns them to self._frames once _reconstruct
         # has built and staged the wire (or the oracle has run), clearing
         # them there, and the main thread takes only clean sets
         if self._recon_exec is None:
@@ -756,12 +789,19 @@ class GpuDecoder(Decoder):
             while len(self._recon_pending) >= RECON_DEPTH:
                 self._recon_pending.popleft().result()  # backpressure + errors
         fut = self._recon_exec.submit(
-            self._recon_task, ft, sps, pps, slices, ref_lists, weight_ctx, poc, cur_uid
+            self._recon_task, decoded, ft, sps, pps, slices, ref_lists, weight_ctx, poc,
+            cur_uid
         )
         self._recon_pending.append(fut)
         return tuple(_FuturePlane(fut, i, self.metrics) for i in range(3))
 
-    def _recon_task(self, ft, sps, pps, slices, ref_lists, weight_ctx, poc, cur_uid):
+    def _recon_task(self, decoded, ft, sps, pps, slices, ref_lists, weight_ctx, poc,
+                    cur_uid):
+        # a failed entropy decode raises here, and its buffers stay out of
+        # the pool (a slice call of the picture may still write them); a
+        # later picture that predicts from it raises in turn, when its
+        # reference planes are uploaded
+        decoded.result()
         ctx = (torch.cuda.device(self.device) if self.device.type == "cuda"
                else contextlib.nullcontext())
         with ctx, timer(self.metrics, "prep"):

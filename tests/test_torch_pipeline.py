@@ -347,9 +347,9 @@ def test_close_stops_worker_threads():
     bs = lavc.encode_x264(make_test_frames(2, 32, 32), qp=30, profile="main",
                           cabac=True, bframes=0, extra_x264="slices=2")
     dec.decode_stream(bs)
-    workers = [dec._recon_exec, dec._slice_exec]
+    workers = [dec._recon_exec, dec._picture_exec, dec._slice_exec]
     dec.close()
-    assert dec._recon_exec is None and dec._slice_exec is None
+    assert dec._recon_exec is None and dec._picture_exec is None and dec._slice_exec is None
     for ex in workers:
         assert all(not t.is_alive() for t in ex._threads)
 
